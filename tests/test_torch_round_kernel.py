@@ -33,13 +33,20 @@ RUN = dict(num_iter=30, stop_mode="per_chain", diag_rows=4)
 
 
 def _xmacro(name):
+    """Field names of an X-macro list, with nested lists expanded."""
     body = re.search(rf"#define {name}\(X\)(.*?)\n\n", SRC, re.S).group(1)
-    return tuple(re.findall(r"X\((\w+)\)", body))
+    names = []
+    for sub, field in re.findall(r"(\w+_LIST)\(X\)|X\((\w+)\)", body):
+        names += _xmacro(sub) if sub else [field]
+    return tuple(names)
 
 
 def test_bank_layout_mirrors_cuda_source():
     assert _xmacro("F_LIST") == rk.F_FIELDS
     assert _xmacro("I_LIST") == rk.I_FIELDS
+    assert _xmacro("F_HOT_LIST") == rk.F_HOT == rk.F_FIELDS[:len(rk.F_HOT)]
+    assert _xmacro("I_HOT_LIST") == rk.I_HOT == rk.I_FIELDS[:len(rk.I_HOT)]
+    assert _xmacro("B_HOT_LIST") == rk.B_HOT == rk.B_FIELDS[:len(rk.B_HOT)]
     assert _xmacro("B_LIST") == rk.B_FIELDS
     assert _xmacro("V_LIST") == rk.V_FIELDS
     fields = set(rk.F_FIELDS + rk.I_FIELDS + rk.B_FIELDS + rk.V_FIELDS)
@@ -85,7 +92,35 @@ def test_pack_unpack_round_trip():
     banks = rk.pack(st)
     assert banks.si.shape == (rk.NI, C) and banks.si.dtype == torch.int32
     assert banks.sf.shape == (rk.layout(D).nf, C)
-    assert banks.vx.shape == (len(rk.V_FIELDS), C, D)
+    assert banks.vx.shape == (C, len(rk.V_FIELDS), rk.padded(D))
+
+
+@pytest.mark.parametrize("dim,dp", [(5, 32), (32, 32), (33, 64), (101, 128),
+                                    (200, 224)])
+def test_vector_bank_is_chain_major_and_zero_padded(dim, dp):
+    """One chain's vectors are one block of ``NV`` rows of ``Dp`` values,
+    zero past D; every vector field of the state is a view of its
+    column in the bank and comes back bit for bit."""
+    rng = np.random.default_rng(dim)
+    st = mk.init_state(torch.from_numpy(rng.normal(size=(3, dim))), 0.4, 0.2,
+                       target=tw.targets.funnel(dim),
+                       cfg=tw.WalnutsConfig(m=M), warmup=None, num_iter=4)
+    st = st._replace(**{f: torch.from_numpy(rng.normal(size=(3, dim)))
+                        for f in rk.V_FIELDS})
+    banks = rk.pack(st)
+    assert rk.padded(dim) == dp
+    assert banks.vx.shape == (3, len(rk.V_FIELDS), dp)
+    assert banks.vx.is_contiguous()
+    assert not banks.vx[:, :, dim:].any()
+    back = rk.unpack(banks, 0)
+    for i, f in enumerate(rk.V_FIELDS):
+        torch.testing.assert_close(getattr(back, f), getattr(st, f),
+                                   rtol=0, atol=0)
+        assert getattr(back, f).data_ptr() == banks.vx[0, i].data_ptr()
+    rk._check(banks)
+    if dim < dp:
+        with pytest.raises(ValueError, match="vx"):
+            rk._check(banks._replace(vx=banks.vx[:, :, :dim].contiguous()))
 
 
 @pytest.fixture(scope="module")

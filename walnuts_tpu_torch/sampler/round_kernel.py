@@ -6,30 +6,29 @@ Replaces the TPU kernel ``walnuts_tpu/sampler/pallas_megakernel.py``
 held a block of 128 chains in VMEM and ran the shared round body on
 ``[128, 128]`` tiles; on the v5e scoped VMEM capped the block there and
 it lost to XLA.  The CUDA kernel (``csrc/round_kernel.cu``) instead
-gives each chain one warp: the D coordinates spread over the lanes,
-per-chain scalars sit in registers for the whole launch, the funnel
-gradient is fused into the leapfrog step, and D-reductions (kinetic
-energy, the funnel's sum of squares, U-turn and merge dots) are warp
-shuffles.  Each warp follows its own chain's control flow, so no chain
-waits on another's mask.
+gives each chain one warp: the D coordinates spread over the lanes, the
+funnel gradient is fused into the leapfrog step, and D-reductions
+(kinetic energy, the funnel's sum of squares, U-turn and merge dots)
+are warp shuffles.  Each warp follows its own chain's control flow, so
+no chain waits on another's mask.
 
-What bounds it on the H100: state bytes per round.  A round reads and
-writes a chain's live trial vectors and, at a macro-step end, up to a
-dozen more ``[D]`` vectors and the span slab: about 9.3 KB of vector
-state plus 2.4 KB of bf16 slab per chain at D=101, m=8 in float32,
-~100 MB for 8192 chains, twice the 50 MB L2.  The design keeps every
-per-chain scalar in registers across the sixteen rounds of a launch
-(so scalar state crosses device memory once per launch, not per
-round), touches a vector only in the round and branch that needs it,
-and stores the slab in bf16.  Keeping the vectors in registers or
-shared memory is later work.
+What bounds it on the H100: latency at too few resident warps, then
+state bytes.  A launch reads and writes each chain's state once, about
+25 KB per chain at D=101, m=8 in float32 with the bf16 slab.  The kernel
+keeps its registers per thread low enough for 24 resident warps per SM:
+the trial vectors ``qt, vt, gt`` live in registers for the whole launch
+(D <= 128), only the scalars the rounds' control flow and micro steps
+read stay in registers, and the rest of a chain's scalars sits in
+shared memory.  The micro steps touch no memory.
 
-The state crosses the C interface as banks (the Pallas kernel's layout,
-without its 128-lane padding): per-chain float scalars as rows of
-``sf [NF, C]``, integers and flags as rows of ``si [NI, C]`` (int32),
-the ``[C, D]`` vectors as planes of ``vx [NV, C, D]``, the slabs as
-``[C, S, D]`` and the rings in the engine's ``[R, C, dg]`` /
-``[Rd, C, 24]`` layout.  The P2 warmup estimators ride as extra rows.
+The state crosses the C interface as banks: per-chain float scalars as
+rows of ``sf [NF, C]``, integers and flags as rows of ``si [NI, C]``
+(int32), each with the kernel's register-resident ("hot") rows first;
+the ``[C, D]`` vectors chain-major as ``vx [C, NV, Dp]``, each row
+zero-padded to ``Dp = 32 * ceil(D / 32)`` so that one chain's vectors
+are one aligned block; the slabs as ``[C, S, D]`` and the rings in the
+engine's ``[R, C, dg]`` / ``[Rd, C, 24]`` layout.  The P2 warmup
+estimators ride as extra rows.
 """
 
 import ctypes
@@ -50,24 +49,27 @@ from .transition import WalnutsConfig
 # bank layout (mirrored by the X-macro lists in csrc/round_kernel.cu)
 # ---------------------------------------------------------------------------
 
-F_FIELDS = (
-    "h_loc", "lps", "h0s", "lpt", "ht", "dht", "fint", "lpa", "ha",
-    "dha", "lpp", "hp", "lpm", "hm", "lpc", "lp_prop", "lp_prop_last",
-    "mscale", "lwt_sum_f", "lwt_sum_b", "w_new_sum", "w_old_sum",
-    "idx_time", "index_stat", "index_stat_old", "time_f", "time_b",
-    "orbit_len", "orbit_len_sam", "h_min", "h_max", "lwt_min",
-    "lwt_max", "h_cur", "delta_cur",
+# The kernel keeps the *_HOT fields in registers and the rest of a
+# chain's scalars in shared memory; each bank lists its hot rows first.
+F_HOT = ("h_loc", "lpt", "ht", "dht", "fint")
+F_FIELDS = F_HOT + (
+    "h_cur", "delta_cur", "lps", "h0s", "lpa", "ha", "dha", "lpp", "hp",
+    "lpm", "hm", "lpc", "lp_prop", "lp_prop_last", "mscale", "lwt_sum_f",
+    "lwt_sum_b", "w_new_sum", "w_old_sum", "idx_time", "index_stat",
+    "index_stat_old", "time_f", "time_b", "orbit_len", "orbit_len_sam",
+    "h_min", "h_max", "lwt_min", "lwt_max",
 )
-I_FIELDS = (
-    "t", "it", "phase", "c_cur", "k", "i_f", "c_sim", "nev_f", "nev_b",
+I_HOT = ("t", "it", "phase", "c_cur", "k")
+I_FIELDS = I_HOT + (
+    "i_f", "c_sim", "nev_f", "nev_b",
     "sel_l", "sel_l_old", "a_abs", "b_abs", "stop_code",
     "n_doubl_sampled", "n_doubl_computed", "max_f_int", "max_b_int",
     "neval_f", "neval_b", "if_min", "if_max", "c_min_d", "c_max_d",
     "n_states", "n_if_neq_ib", "n_if_zero", "grad_ct", "prow0",
     "prow1",
 )
-B_FIELDS = ("second", "coarse", "depth_done", "both_ends_passive",
-            "pend0", "pend1")
+B_HOT = ("second", "coarse", "depth_done")
+B_FIELDS = B_HOT + ("both_ends_passive", "pend0", "pend1")
 V_FIELDS = (
     "qs", "vs", "gs", "qt", "vt", "gt", "qa", "va", "ga", "q1", "v1",
     "qp", "vp", "gp", "qm", "vm", "gm", "qc", "gc", "q_prop", "g_prop",
@@ -80,6 +82,11 @@ I_BOOL = I_XI + 1
 I_P2H = I_BOOL + len(B_FIELDS)
 I_P2D = I_P2H + P2_I_ROWS
 NI = I_P2D + P2_I_ROWS
+
+
+def padded(D: int) -> int:
+    """Row length of the vector bank: D rounded up to whole warps."""
+    return 32 * -(-D // 32)
 
 
 class Layout(NamedTuple):
@@ -103,7 +110,7 @@ def layout(dg: int) -> Layout:
 class Banks(NamedTuple):
     sf: torch.Tensor       # [NF, C] run dtype
     si: torch.Tensor       # [NI, C] int32
-    vx: torch.Tensor       # [NV, C, D] run dtype
+    vx: torch.Tensor       # [C, NV, Dp] run dtype, zero past D
     slab_q: torch.Tensor   # [C, S, D] slab dtype
     slab_v: torch.Tensor
     samples: torch.Tensor  # [R, C, dg]
@@ -119,6 +126,9 @@ def pack(st: MState) -> Banks:
     f_rows += list(st.pdiag0) + list(st.pdiag1)
     i_rows = [getattr(st, f) for f in I_FIELDS] + [xi32]
     i_rows += [getattr(st, f).to(torch.int32) for f in B_FIELDS]
+    C, D = st.qc.shape
+    vx = st.qc.new_zeros((C, len(V_FIELDS), padded(D)))
+    vx[:, :, :D] = torch.stack([getattr(st, f) for f in V_FIELDS], dim=1)
     for p2 in (st.p2h, st.p2d):
         f_rows += list(p2.x.T) + list(p2.q.T) + [p2.p]
     for p2 in (st.p2h, st.p2d):
@@ -126,7 +136,7 @@ def pack(st: MState) -> Banks:
     return Banks(
         sf=torch.stack(f_rows),
         si=torch.stack(i_rows),
-        vx=torch.stack([getattr(st, f) for f in V_FIELDS]),
+        vx=vx,
         slab_q=st.slab_q.clone(memory_format=torch.contiguous_format),
         slab_v=st.slab_v.clone(memory_format=torch.contiguous_format),
         samples=st.samples.clone(memory_format=torch.contiguous_format),
@@ -136,15 +146,16 @@ def pack(st: MState) -> Banks:
 
 def unpack(b: Banks, n: int) -> MState:
     """Banks -> engine state at absolute round ``n``.  Float and integer
-    fields are views into the banks (writing one writes the bank); the
-    flags and ``xi_bits`` are converted copies."""
+    fields and the vectors are views into the banks (writing one writes
+    the bank); the flags and ``xi_bits`` are converted copies."""
     dg = b.samples.shape[2]
+    D = b.slab_q.shape[2]
     lay = layout(dg)
     d = {f: b.sf[i] for i, f in enumerate(F_FIELDS)}
     d.update({f: b.si[i] for i, f in enumerate(I_FIELDS)})
     d["xi_bits"] = b.si[I_XI].to(torch.int64) & 0xFFFFFFFF
     d.update({f: b.si[I_BOOL + j] != 0 for j, f in enumerate(B_FIELDS)})
-    d.update({f: b.vx[i] for i, f in enumerate(V_FIELDS)})
+    d.update({f: b.vx[:, i, :D] for i, f in enumerate(V_FIELDS)})
     d["pgen0"] = b.sf[lay.pgen0:lay.pgen0 + dg].T
     d["pgen1"] = b.sf[lay.pgen1:lay.pgen1 + dg].T
     d["pdiag0"] = b.sf[lay.pdiag0:lay.pdiag0 + 24]
@@ -247,8 +258,7 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
             "autograd path of ROADMAP queue 1 item 2 and a kernel of "
             "their own (ROADMAP queue 2)")
     NF, C = b.sf.shape
-    D = b.vx.shape[2]
-    S = b.slab_q.shape[1]
+    S, D = b.slab_q.shape[1:]
     dg = b.samples.shape[2]
     dtype = b.vx.dtype
     proto_d, min_c, max_c = protocol(cfg)
@@ -274,16 +284,15 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
 
 def _check(b: Banks):
     dev = b.vx.device
-    NV, C, D = b.vx.shape
+    C, S, D = b.slab_q.shape
     dtype = b.vx.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"round kernel runs float32 or float64, not {dtype}")
     dg = b.samples.shape[2]
-    S = b.slab_q.shape[1]
     want = {
         "sf": ((layout(dg).nf, C), dtype),
         "si": ((NI, C), torch.int32),
-        "vx": ((len(V_FIELDS), C, D), dtype),
+        "vx": ((C, len(V_FIELDS), padded(D)), dtype),
         "slab_q": ((C, S, D), slab_dtype(dtype)),
         "slab_v": ((C, S, D), slab_dtype(dtype)),
         "samples": ((b.samples.shape[0], C, dg), dtype),
@@ -315,3 +324,27 @@ def _launch(b: Banks, n: int, spec: RoundSpec):
     if err != 0:
         raise RuntimeError(f"round kernel launch failed: cudaError {err}")
     launches += 1
+
+
+def kernel_attributes(dtype, target: str, D: int) -> dict:
+    """What the kernel instantiation that runs ``dtype``, ``target`` (a
+    ``KERNEL_TARGETS`` key) and dimension ``D`` was built with, from the
+    CUDA runtime on the current device: registers and local (stack)
+    bytes per thread, static shared bytes per block, resident blocks
+    and warps per SM, and the trial-vector values per lane (``dpl``, 0
+    when they stay in the bank)."""
+    from .. import _build
+
+    fn = _build.load().walnuts_round_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(0 if dtype == torch.float64 else 1, KERNEL_TARGETS[target], D,
+             out)
+    if err != 0:
+        raise RuntimeError(f"round kernel attributes: cudaError {err}")
+    regs, local, shared, blocks, threads, dpl = out
+    return dict(regs=regs, local_bytes=local, shared_bytes=shared,
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                dpl=dpl)
