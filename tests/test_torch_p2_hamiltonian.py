@@ -11,6 +11,7 @@ import torch
 
 from walnuts_tpu.utils import p2 as jp2
 from walnuts_tpu_torch.utils import p2 as tp2
+from walnuts_tpu_torch.utils.threefry import PRNGKey
 
 # the packages re-export functions under their modules' names
 jham = import_module("walnuts_tpu.ops.hamiltonian")
@@ -86,13 +87,16 @@ def test_uturn_matches_jax():
 
 
 def test_refresh_momentum_takes_a_generator():
-    g1 = torch.Generator().manual_seed(3)
-    g2 = torch.Generator().manual_seed(3)
-    a = tham.refresh_momentum(g1, (64, 7), dtype=torch.float64)
-    b = tham.refresh_momentum(g2, (64, 7), dtype=torch.float64)
+    """The momentum generator is a threefry key: the draw is JAX's
+    ``normal(key, shape)`` on the same key, scaled by ``M^{1/2}``."""
+    a = tham.refresh_momentum(PRNGKey(3), (64, 7), dtype=torch.float64)
+    want = jham.refresh_momentum(jax.random.PRNGKey(3), (64, 7),
+                                 dtype=jnp.float64)
     assert a.shape == (64, 7) and a.dtype == torch.float64
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # within a few ulp: the port's erf_inv is not XLA's to the last bit
+    np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-13)
     inv_mass = torch.full((7,), 4.0, dtype=torch.float64)
-    c = tham.refresh_momentum(torch.Generator().manual_seed(3), (64, 7),
-                              inv_mass=inv_mass, dtype=torch.float64)
+    c = tham.refresh_momentum(PRNGKey(3), (64, 7), inv_mass=inv_mass,
+                              dtype=torch.float64)
     torch.testing.assert_close(c, a * 0.5, rtol=0, atol=0)

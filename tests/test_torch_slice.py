@@ -44,11 +44,12 @@ def test_funnel_slice_matches_jax_and_marginal():
     t_wu = tw.run_walnuts_fused(
         _seed(k_wu), torch.from_numpy(q0), 0.3, 0.3,
         target=tw.targets.funnel(D), cfg=tw.WalnutsConfig(m=M),
-        warmup=tw.WarmupConfig(warmup_iter=WARMUP, pooled=True), **wu_kw)
+        warmup=tw.WarmupConfig(warmup_iter=WARMUP, pooled=True),
+        device="cpu", **wu_kw)
     t_out = tw.run_walnuts_fused(
         _seed(k_draw), t_wu[2], t_wu[5], t_wu[6],
         target=tw.targets.funnel(D, generated=tw.targets.omega_sumsq),
-        cfg=tw.WalnutsConfig(m=M), **draw_kw)
+        cfg=tw.WalnutsConfig(m=M), device="cpu", **draw_kw)
 
     # one pooled (H, delta), moved by warmup, as JAX moved it
     h, delta = t_wu[5].numpy(), t_wu[6].numpy()

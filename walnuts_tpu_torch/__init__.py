@@ -1,16 +1,22 @@
-"""walnuts_tpu_torch: the WALNUTS fused engine in PyTorch, with its
-round kernel written by hand in CUDA for the NVIDIA H100.
+"""walnuts_tpu_torch: WALNUTS in PyTorch for the NVIDIA H100.
 
 A port of :mod:`walnuts_tpu` (the JAX package, kept as the reference)
-that mirrors its subpackage layout and names.  Device and dtype come
-from the chains' start positions ``q0``: on a CUDA tensor the engine's
-rounds run in ``csrc/round_kernel.cu``, on a CPU tensor in the plain
-torch round body.
+that mirrors its subpackage layout and names.  Two engines:
+
+* :func:`run_walnuts`, the scan engine: any of the seven integrators,
+  warmup adaptation, full diagnostics, JAX's threefry random stream;
+* :func:`run_walnuts_fused`, the fused engine, whose rounds run in the
+  hand-written CUDA kernel ``csrc/round_kernel.cu``.
+
+Every entry runs on the card unless the caller passes ``device="cpu"``
+(the fused engine's CPU path is the kernel's plain torch twin); without
+a card the default raises.  dtype comes from ``q0``.
 """
 
 from . import diagnostics, ops, sampler, targets, utils
-from .ops import IntegratorConfig
-from .sampler import WalnutsConfig, WarmupConfig, run_walnuts_fused
+from .ops import IntegratorConfig, get_integrator
+from .sampler import (SamplerState, WalnutsConfig, WarmupConfig, run_walnuts,
+                      run_walnuts_fused)
 from .targets import Target
 
 __all__ = [
@@ -21,7 +27,10 @@ __all__ = [
     "diagnostics",
     "Target",
     "IntegratorConfig",
+    "get_integrator",
     "WalnutsConfig",
     "WarmupConfig",
+    "SamplerState",
+    "run_walnuts",
     "run_walnuts_fused",
 ]

@@ -7,6 +7,8 @@ over the trailing dimension only.
 
 import torch
 
+from ..utils import threefry
+
 
 def kinetic_energy(v, inv_mass=None):
     """``0.5 * v^T M^{-1} v``."""
@@ -31,12 +33,12 @@ def uturn(q_earlier, v_earlier, q_later, v_later, inv_mass=None):
             | (torch.sum(v_earlier * d, dim=-1) < 0.0))
 
 
-def refresh_momentum(generator, shape, inv_mass=None, dtype=torch.float32,
-                     device=None):
-    """Draw ``v ~ N(0, M)`` from ``generator`` (a ``torch.Generator`` on
-    ``device``): a standard-normal refresh with ``inv_mass=None``,
+def refresh_momentum(key, shape, inv_mass=None, dtype=torch.float32):
+    """Draw ``v ~ N(0, M)`` from the threefry key ``key``
+    (``utils.threefry``), on the key's device: JAX's
+    ``jax.random.normal(key, shape, dtype)`` with ``inv_mass=None``,
     otherwise ``v = M^{1/2} z``."""
-    z = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    z = threefry.normal(key, shape, dtype)
     if inv_mass is None:
         return z
     return z * inv_mass ** -0.5

@@ -13,8 +13,8 @@ This module holds the engine's state (:class:`MState`, the JAX
 round body (sections A-G of the JAX round body), the ring flush, the
 pooled warmup consensus and the public entry :func:`run_walnuts_fused`.
 Rounds run sixteen at a time, one flush period per call of
-:func:`..round_kernel.run_rounds`: the hand-written CUDA kernel on a
-CUDA tensor, the plain round body here on a CPU tensor.
+:func:`..round_kernel.run_rounds`: the hand-written CUDA kernel on the
+card, the plain round body here on the CPU.
 
 Randomness is the JAX engine's ``rng="hash"`` stream: every draw is a
 splitmix32 hash of (seed, global chain id, absolute round, purpose),
@@ -29,6 +29,7 @@ import torch
 
 from ..ops.hamiltonian import hamiltonian, uturn
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
+from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
 from ..utils.p2 import P2State, p2_init, p2_push, p2_quantile
 from .driver import WarmupConfig
 from .transition import WalnutsConfig
@@ -959,17 +960,21 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
                       rounds: int = None,
                       mk_state: MState = None,
                       adapt_state=None,
-                      micro_unroll: int = 1):
+                      micro_unroll: int = 1,
+                      device=DEFAULT_DEVICE):
     """Stream WALNUTS transitions for the chains ``q0 [C, D]`` (the
     JAX ``run_walnuts_fused`` with ``rng="hash"``).
 
     ``seed`` is the int32 hash seed (the JAX engine derives it from its
-    key at ``megakernel.py:1258-1259``).  dtype and device come from
-    ``q0``: on a CUDA tensor every round runs in the hand-written
+    key at ``megakernel.py:1258-1259``).  dtype comes from ``q0``.
+    ``q0`` (a tensor or a numpy array), ``h_step``, ``delta``,
+    ``mk_state`` and ``adapt_state`` are moved to ``device``, the card
+    unless the caller passes ``device="cpu"``; without a card the
+    default raises.  On the card every round runs in the hand-written
     kernel, which implements the targets with a ``kernel_id`` and the
     identity and :func:`..targets.analytic.omega_sumsq` summaries; any
-    other raises ``NotImplementedError``.  On a CPU tensor the plain
-    round body runs.
+    other raises ``NotImplementedError``.  On the CPU the kernel's plain
+    twin, the plain round body, runs.
 
     ``stop_mode``: ``"per_chain"`` (every chain stops at ``num_iter``
     draws), ``"total"`` (until ``C * num_iter`` draws exist; rings keep
@@ -997,13 +1002,15 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
                 target=target, cfg=cfg, num_iter=num_iter,
                 stop_mode=stop_mode, warmup=warmup, ring_rows=ring_rows,
                 diag_rows=diag_rows, rounds=rounds, mk_state=mk_state,
-                adapt_state=adapt_state, micro_unroll=micro_unroll)
+                adapt_state=adapt_state, micro_unroll=micro_unroll,
+                device=device)
 
 
 def run_walnuts_fused_plain(seed, q0, h_step, delta, **kw):
     """:func:`run_walnuts_fused` with every flush period in the plain
-    twin of the round kernel, on any device: the reference the kernel
-    is held against on the card."""
+    twin of the round kernel, on ``device`` (the card unless the caller
+    passes ``device="cpu"``): the reference the kernel is held against
+    on the card."""
     from . import round_kernel
 
     return _run(round_kernel.run_rounds_plain, seed, q0, h_step, delta, **kw)
@@ -1011,9 +1018,14 @@ def run_walnuts_fused_plain(seed, q0, h_step, delta, **kw):
 
 def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
          stop_mode="per_chain", warmup=None, ring_rows=None, diag_rows=None,
-         rounds=None, mk_state=None, adapt_state=None, micro_unroll=1):
+         rounds=None, mk_state=None, adapt_state=None, micro_unroll=1,
+         device=DEFAULT_DEVICE):
     from . import round_kernel
 
+    dev = resolve_device(device)
+    q0 = torch.as_tensor(q0).to(dev)
+    h_step, delta, mk_state, adapt_state = (
+        to_device(x, dev) for x in (h_step, delta, mk_state, adapt_state))
     C, D = q0.shape
     if not 1 <= cfg.m <= 32:
         raise ValueError(f"cfg.m must be in [1, 32], got {cfg.m}")

@@ -71,6 +71,22 @@ class Target:
     def grad(self, q):
         return self.logp_grad(q)[1]
 
+    def hvp(self, q, v):
+        """Hessian-vector product, forward over reverse (``torch.func``)."""
+        return torch.func.jvp(lambda x: self.logp_grad(x)[1], (q,), (v,))[1]
+
+    def hessian(self, q):
+        return torch.func.hessian(self._logp)(q)
+
+    def hessian_batched(self, q):
+        """Batched Hessians ``[..., D] -> [..., D, D]`` (the implicit
+        midpoint integrator's Newton mode)."""
+        if q.ndim == 1:
+            return self.hessian(q)
+        flat = q.reshape(-1, q.shape[-1])
+        out = torch.func.vmap(torch.func.hessian(self._logp))(flat)
+        return out.reshape(q.shape[:-1] + out.shape[-2:])
+
     def generated(self, q):
         if self._generated is None:
             return q
