@@ -12,6 +12,14 @@ marginal and prints grad-evals/s and min-ESS/s.  Phase 6 runs the scan
 engine ``run_walnuts`` on the card: float64 against the CPU, then the
 README Quick start's width (funnel(101), 4096 chains, m=10, R2P) for a
 few transitions, with its wall, gradient evaluations and depths.
+Phase 7 runs the streaming engine ``run_walnuts_streaming`` the same
+way, from phase 6's adapted chains; phase 8 runs generic-step NUTS and
+the multinomial sampler (float64 against the CPU), then config 5's
+``iso_std`` arm (``examples/highdim_variants.py``: isokinetic kernel,
+D = 10^4, 32 chains) with its ESS per 1000 gradient evaluations.  None
+of these three engines reaches a hand-written kernel (nor does their
+JAX counterpart reach a Pallas kernel), so each phase also prints the
+round kernel's launch count over its run: 0.
 
 Run from the repository root, with no arguments:
 
@@ -85,7 +93,9 @@ def main():
     max_abs_err = phase_f32(tw, mk, rk, dev)
     warm, launches = phase_main(tw, mk, rk, dev)
     ms, plain_ms, bound_ms, bound_by = phase_timing(tw, mk, rk, dev, warm)
-    phase_scan(tw, rk, dev)
+    scan_state, scan_s_per_it = phase_scan(tw, rk, dev)
+    phase_stream(tw, rk, dev, scan_state, scan_s_per_it)
+    phase_iso(tw, rk, dev)
     log(json.dumps({"kernels": [{
         "name": "walnuts_round_kernel",
         "route": "cuda",
@@ -503,13 +513,14 @@ SCAN_CHAINS, SCAN_DIM = 4096, 101     # the Quick start's C and funnel(D)
 STOP_CODES = (0, 4, -4, 5, 999)
 
 
-def _scan_check(name, s, d, C, D):
-    """The scan engine's outputs: finite samples of the expected shape,
-    stop codes in the contract's set."""
+def _scan_check(name, s, d, C, D, lead=1):
+    """A WALNUTS engine's outputs: finite samples of the expected shape
+    (``lead`` rows before the first transition's), stop codes in the
+    contract's set."""
     import torch
 
     n = d.shape[0]
-    if tuple(s.shape) != (n + 1, C, D) or tuple(d.shape) != (n, C, 24):
+    if tuple(s.shape) != (n + lead, C, D) or tuple(d.shape) != (n, C, 24):
         raise AssertionError(f"{name}: shapes {tuple(s.shape)}, "
                              f"{tuple(d.shape)}")
     if not bool(torch.isfinite(s).all()):
@@ -526,7 +537,8 @@ def phase_scan(tw, rk, dev):
     funnel(11), C=64, m=5, 20 iterations without warmup, on the card and
     on the CPU: integer diagnostics equal, floats within the exact
     contract.  (b) the README Quick start's width: funnel(101), 4096
-    chains, m=10, R2P, float32, h0 = delta0 = 0.3, per-chain warmup."""
+    chains, m=10, R2P, float32, h0 = delta0 = 0.3, per-chain warmup.
+    Returns (b)'s final ``SamplerState`` and its wall per transition."""
     import numpy as np
     import torch
     from walnuts_tpu_torch.utils.parity import EXACT, assert_parity
@@ -578,6 +590,7 @@ def phase_scan(tw, rk, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     scan_launches = rk.launches
+    s_per_it = wall / n
     codes = _scan_check("6b", s, d, C, D)
     grads = int(d[..., 6].double().sum() + d[..., 7].double().sum())
     per_it = d[..., 6].double().sum(-1) + d[..., 7].double().sum(-1)
@@ -595,25 +608,266 @@ def phase_scan(tw, rk, dev):
         f"{scan_launches}")
 
     # the card's busy share over one more transition, under torch.profiler
+    log("phase 6b profile, one more sampling transition: " + _profiled(
+        lambda: tw.run_walnuts(
+            8, resume_state=st, target=tw.targets.funnel(D),
+            cfg=tw.WalnutsConfig(m=10), num_iter=1,
+            warmup=tw.WarmupConfig(warmup_iter=SCAN_WARMUP),
+            device=dev))[0])
+    return st, s_per_it
+
+
+def _profiled(fn):
+    """Run ``fn`` under torch.profiler and say how busy the card was:
+    the device kernels' summed time against the wall.  Returns that
+    text and the number of device kernels."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tw.run_walnuts(8, resume_state=st, target=tw.targets.funnel(D),
-                       cfg=tw.WalnutsConfig(m=10), num_iter=1,
-                       warmup=tw.WarmupConfig(warmup_iter=SCAN_WARMUP),
-                       device=dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     kernels = sum(e.count for e in events)
-    log(f"phase 6b profile, one more sampling transition: card busy "
-        f"{busy:.3f} s of {wall:.3f} s wall under the profiler "
-        f"({busy / wall:.1%}), {kernels} device kernels "
-        f"({wall / max(kernels, 1) * 1e6:.1f} us of wall per kernel)")
+    return (f"card busy {busy:.3f} s of {wall:.3f} s wall under the "
+            f"profiler ({busy / wall:.1%}), {kernels} device kernels "
+            f"({wall / max(kernels, 1) * 1e6:.1f} us of wall per kernel)",
+            kernels)
+
+
+# Phase 7b streams this many transitions per chain at the README width
+# from 6b's adapted state (the README runs 2000; the cut keeps the run
+# near 60 s at the ~3.3 s per transition this phase measured on an H100).
+STREAM_ITERS = 20
+# Phase 8b runs config 5's iso_std arm (D = 10^4, 32 chains, m = 9;
+# the example runs 400 iterations) for this many generic-NUTS
+# transitions, then the multinomial sampler (L = 20, no warmup) for this
+# many iterations; the cuts keep the phase near 60 s at the ~4.2 s per
+# transition and ~0.3 s per iteration this phase measured on an H100.
+ISO_DIM, ISO_CHAINS, ISO_M = 10000, 32, 9
+ISO_NUTS_ITERS, ISO_MULTI_ITERS = 8, 30
+
+
+def _assert_same(name, want, got, contract, int_cols=()):
+    """Card run ``got`` against CPU run ``want`` (tensors): the integer
+    columns equal, everything within ``contract``."""
+    import numpy as np
+    from walnuts_tpu_torch.utils.parity import assert_parity
+
+    want, got = want.cpu().numpy(), got.cpu().numpy()
+    if int_cols:
+        np.testing.assert_array_equal(got[..., int_cols],
+                                      want[..., int_cols], err_msg=name)
+    assert_parity(want, got, contract, name)
+    return float(np.abs(want - got).max())
+
+
+def phase_stream(tw, rk, dev, scan_state, scan_s_per_it):
+    """The streaming engine ``run_walnuts_streaming`` on the card (plain
+    torch: the JAX streaming engine reaches no Pallas kernel).  (a)
+    float64 funnel(11), C=64, m=5, R2P, hash draws, per-chain tuning, 20
+    transitions on the card and on the CPU: integer columns equal,
+    floats within the exact contract.  (b) the README width: funnel(101),
+    4096 chains, m=10, R2P, float32, hash draws, ``STREAM_ITERS``
+    transitions from 6b's adapted per-chain H, delta and positions."""
+    import numpy as np
+    import torch
+    from walnuts_tpu_torch.utils.parity import EXACT
+
+    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    C, D = 64, 11
+    rng = np.random.default_rng(1)
+    q0 = 0.5 * rng.normal(size=(C, D))
+    h, dl = np.linspace(0.25, 0.5, C), np.linspace(0.08, 0.3, C)
+    kw = dict(target=tw.targets.funnel(D), cfg=tw.WalnutsConfig(m=5),
+              num_iter=20)
+    t0 = time.perf_counter()
+    out_g = tw.sampler.run_walnuts_streaming(5, q0, h, dl, device=dev, **kw)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    out_c = tw.sampler.run_walnuts_streaming(5, q0, h, dl, device="cpu",
+                                             **kw)
+    if out_g[0].device != dev:
+        raise AssertionError("run_walnuts_streaming did not run on the card")
+    err = max(_assert_same("7a samples", out_c[0], out_g[0], EXACT),
+              _assert_same("7a diagnostics", out_c[1], out_g[1], EXACT,
+                           int_cols),
+              _assert_same("7a q_final", out_c[2], out_g[2], EXACT))
+    _scan_check("7a", out_g[0], out_g[1], C, D, lead=0)
+    log(f"phase 7a streaming f64 card == CPU: funnel(11) C=64 m=5 R2P hash, "
+        f"per-chain H and delta, 20 transitions: integer columns equal, "
+        f"max abs float diff {err:.3e} (rtol {EXACT['rtol']:g}, atol "
+        f"{EXACT['atol']:g}); wall {t_gpu:.2f} s on the card")
+
+    # (b) README width from 6b's adapted chains; the streaming path
+    # launches no hand-written kernel
+    C, D = SCAN_CHAINS, SCAN_DIM
+    target = tw.targets.funnel(D)
+    cfg = tw.WalnutsConfig(m=10, integrator="adapt_leapfrog_r2p")
+    stats = {}
+    rk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, d, qf = tw.sampler.run_walnuts_streaming(
+        9, scan_state.q, scan_state.h, scan_state.delta, target=target,
+        cfg=cfg, num_iter=STREAM_ITERS, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    codes = _scan_check("7b", s, d, C, D, lead=0)
+    grads = int(d[..., 6].double().sum() + d[..., 7].double().sum())
+    depth = d[..., 20].double()
+    stop = {c: int((d[..., 19] == c).sum()) for c in sorted(codes)}
+    # an orbit of depth d spans up to 2^(d-1) schedule rows: the
+    # streaming engine needs the slowest chain's sum of them, the scan
+    # engine the sum over transitions of the deepest chain's
+    rows = torch.exp2(depth - 1.0)
+    rows_chain = rows.sum(0)
+    log(f"phase 7b streaming, README width: funnel({D}) C={C} m=10 R2P f32 "
+        f"hash, {STREAM_ITERS} transitions per chain from 6b's adapted "
+        f"chains in {wall:.2f} s over {stats['rounds']} rounds = "
+        f"{wall / STREAM_ITERS:.3f} s per transition (6b's scan engine: "
+        f"{scan_s_per_it:.3f} s per transition), "
+        f"{wall / stats['rounds'] * 1e3:.2f} ms per round; {grads} grad "
+        f"evals = {grads / wall:.1f} grad-evals/s; orbit depth mean "
+        f"{float(depth.mean()):.2f}, worst {int(depth.max())}; stop codes "
+        f"{stop}; sd(omega) {float(s[..., 0].double().std()):.3f}; "
+        f"schedule rows (2^(depth-1) per transition) of the mean chain "
+        f"{float(rows_chain.mean()):.0f}, of the slowest chain "
+        f"{float(rows_chain.max()):.0f}, sum of each transition's deepest "
+        f"{float(rows.amax(1).sum()):.0f}; round-kernel launches "
+        f"{rk.launches}")
+    stats = {}
+    text, kernels = _profiled(lambda: tw.sampler.run_walnuts_streaming(
+        10, qf, scan_state.h, scan_state.delta, target=target, cfg=cfg,
+        num_iter=1, device=dev, stats=stats))
+    log(f"phase 7b profile, 1 more transition per chain: {text}; "
+        f"{stats['rounds']} rounds, {kernels / stats['rounds']:.0f} device "
+        f"kernels per round")
+
+
+def _iso_target(tw, dim):
+    """Config 5's ``iso_std`` target (``examples/highdim_variants.py``):
+    a standard normal in ``dim`` dimensions with the generated quantities
+    ``[q_0 / sd_0, q_last / sd_last, sum (q / sd)^2]`` (sd = 1)."""
+    import torch
+
+    def logp_grad(q):
+        return -0.5 * torch.sum(q * q, dim=-1), -q
+
+    def generated(q):
+        return torch.stack([q[..., 0], q[..., -1],
+                            torch.sum(q * q, dim=-1)], dim=-1)
+
+    return tw.Target(lambda q: logp_grad(q)[0], dim,
+                     name=f"std_gauss_{dim}", generated=generated,
+                     logp_grad=logp_grad)
+
+
+def phase_iso(tw, rk, dev):
+    """The isokinetic line on the card (plain torch: neither JAX path
+    reaches a Pallas kernel).  (a) float64 std_gauss(5), C=16, m=5, on
+    the card and on the CPU: ``run_generic_nuts`` with each kernel (10
+    iterations, exact contract) and ``run_multinomial`` (isokinetic, L =
+    12, 20 warmup + 10 iterations, adaptive contract).  (b) config 5's
+    ``iso_std`` arm at full width: D = 10^4, 32 chains, m = 9, h_macro =
+    1.4 D^-1/4, delta = 0.2, float32, ``IsokineticKernel``, from an exact
+    stationary start; then ``run_multinomial`` (isokinetic, L = 20) on
+    the same target and width."""
+    import numpy as np
+    import torch
+    from walnuts_tpu_torch.diagnostics import ess_per_grad
+    from walnuts_tpu_torch.utils import threefry
+    from walnuts_tpu_torch.utils.parity import ADAPTIVE, EXACT
+
+    sp = tw.sampler
+    C, D = 16, 5
+    q0 = 0.8 * np.random.default_rng(2).normal(size=(C, D))
+    t5 = tw.targets.std_gauss(D)
+    for kname, kern in (("isokinetic", sp.IsokineticKernel()),
+                        ("hmc", sp.HMCKernel())):
+        kw = dict(target=t5, kernel=kern, h_macro=0.5, delta=0.1,
+                  num_iter=10, m=5)
+        s_g, d_g = sp.run_generic_nuts(11, q0, device=dev, **kw)
+        s_c, d_c = sp.run_generic_nuts(11, q0, device="cpu", **kw)
+        err = max(_assert_same(f"8a {kname} samples", s_c, s_g, EXACT),
+                  _assert_same(f"8a {kname} diagnostics", d_c, d_g, EXACT,
+                               [0, 1, 2, 3, 4, 5, 6, 7, 9, 10]))
+        log(f"phase 8a generic NUTS ({kname}) f64 card == CPU: "
+            f"std_gauss(5) C=16 m=5, 10 iterations: integer columns "
+            f"equal, max abs float diff {err:.3e} (rtol {EXACT['rtol']:g}, "
+            f"atol {EXACT['atol']:g}); grad evals "
+            f"{int(d_g[..., 7].sum())}")
+    kw = dict(target=t5, kernel=sp.IsokineticKernel(),
+              cfg=sp.MultinomialConfig(l_orbit=12), h0=0.6, delta0=0.2,
+              num_iter=30, warmup_iter=20)
+    out_g = sp.run_multinomial(17, q0, device=dev, **kw)
+    out_c = sp.run_multinomial(17, q0, device="cpu", **kw)
+    err = max(_assert_same("8a multinomial samples", out_c[0], out_g[0],
+                           ADAPTIVE),
+              _assert_same("8a multinomial diagnostics", out_c[1], out_g[1],
+                           ADAPTIVE, [1, 2, 3, 4, 6, 9]),
+              *(_assert_same("8a multinomial (h, delta)", a, b, ADAPTIVE)
+                for a, b in zip(out_c[2], out_g[2])))
+    log(f"phase 8a multinomial (isokinetic, WASPS) f64 card == CPU: "
+        f"std_gauss(5) C=16 L=12, 20 warmup + 10 iterations: integer "
+        f"columns equal, max abs float diff {err:.3e} (rtol "
+        f"{ADAPTIVE['rtol']:g}, atol {ADAPTIVE['atol']:g}); adapted H "
+        f"median {float(out_g[2][0].median()):.4f}")
+
+    # (b) config 5's iso_std arm; the example's key and exact start
+    C, D = ISO_CHAINS, ISO_DIM
+    target = _iso_target(tw, D)
+    key = threefry.PRNGKey(sum(map(ord, "iso_std")), dev)
+    q0 = threefry.normal(key, (C, D), torch.float32)
+    h = 1.4 * D ** -0.25
+    rk.launches = 0
+    runs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, d = sp.run_generic_nuts(threefry.fold_in(key, 1), q0, target=target,
+                               kernel=sp.IsokineticKernel(), h_macro=h,
+                               delta=0.2, num_iter=ISO_NUTS_ITERS, m=ISO_M,
+                               device=dev)
+    torch.cuda.synchronize()
+    runs.append(("generic NUTS", ISO_NUTS_ITERS, time.perf_counter() - t0,
+                 s, float(d[..., 7].double().sum()),
+                 f"NUTtype counts {_counts(d[..., 6])}, orbit doublings "
+                 f"mean {float(d[..., 0].double().mean()):.2f}, max "
+                 f"{int(d[..., 0].max())}"))
+    t0 = time.perf_counter()
+    s, d, _ = sp.run_multinomial(
+        threefry.fold_in(key, 2), q0, target=target,
+        kernel=sp.IsokineticKernel(), cfg=sp.MultinomialConfig(l_orbit=20),
+        h0=h, delta0=0.2, num_iter=ISO_MULTI_ITERS, warmup_iter=0,
+        device=dev)
+    torch.cuda.synchronize()
+    runs.append(("multinomial L=20", ISO_MULTI_ITERS,
+                 time.perf_counter() - t0, s, float(d[..., 9].double().sum()),
+                 f"steps per orbit mean {float(d[..., 6].double().mean()):.2f}"
+                 f", ESS fraction mean {float(d[..., 7].double().mean()):.4f}"))
+    for name, n, wall, s, grads, extra in runs:
+        draws = s[1:].double()
+        if tuple(draws.shape) != (n, C, 3) or \
+                not bool(torch.isfinite(draws).all()):
+            raise AssertionError(f"8b {name}: bad draws {tuple(draws.shape)}")
+        epg = ess_per_grad(draws, grads)
+        log(f"phase 8b {name}, config 5 iso_std: D={D} C={C} f32 h_macro "
+            f"{h:.5f} delta 0.2, {n} iterations in {wall:.2f} s = "
+            f"{wall / n:.3f} s per iteration; {grads:.0f} grad evals = "
+            f"{grads / wall:.1f} grad-evals/s; ESS per 1000 grads "
+            f"(q0, q_last, radius) {[round(float(x), 3) for x in epg]}; "
+            f"radius mean {float(draws[..., 2].mean()):.1f} against D = {D}; "
+            f"{extra}; round-kernel launches {rk.launches}")
+
+
+def _counts(x):
+    vals, counts = x.unique(return_counts=True)
+    return {int(v): int(c) for v, c in zip(vals.tolist(), counts.tolist())}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,14 @@ CASES = {
     "funnel101": (lambda m: m.targets.funnel(101), 101),
     "funnel11_scale2": (lambda m: m.targets.funnel(11, scale=2.0), 11),
     "std_gauss9": (lambda m: m.targets.std_gauss(9), 9),
+    "corr_gauss095": (lambda m: m.targets.corr_gauss(0.95), 2),
+    "smile": (lambda m: m.targets.smile(), 2),
+    "rosenbrock": (lambda m: m.targets.rosenbrock(), 2),
+    "mod_funnel": (lambda m: m.targets.mod_funnel(), 2),
+    "funnel_rescaled7": (lambda m: m.targets.funnel_rescaled(7), 7),
+    "ill_gauss9": (lambda m: m.targets.ill_conditioned_gauss(9), 9),
+    "ill_gauss4_k100": (
+        lambda m: m.targets.ill_conditioned_gauss(4, 100.0), 4),
 }
 
 
@@ -34,7 +42,9 @@ def test_logp_grad_matches_jax(name):
                                atol=1e-300)
 
 
-@pytest.mark.parametrize("name", ["funnel7", "std_gauss9"])
+@pytest.mark.parametrize("name", ["funnel7", "std_gauss9", "corr_gauss095",
+                                  "mod_funnel", "funnel_rescaled7",
+                                  "ill_gauss9"])
 def test_scalar_logp_matches_jax(name):
     make, D = CASES[name]
     q = _q(D, C=5, seed=1)

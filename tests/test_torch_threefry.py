@@ -94,3 +94,33 @@ def test_erf_inv_edges():
         x = torch.tensor([-1.0, 0.0, 1.0], dtype=dt)
         y = tf.erf_inv(x)
         assert y[0] == -torch.inf and y[1] == 0.0 and y[2] == torch.inf
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_bitwise(seed):
+    """``randint`` at its two call sites: the hash-seed derivation
+    ``randint(fold_in(key, 777), (1,), 0, 2^30, int32)`` of the
+    streaming and fused engines, and the multinomial sampler's forward
+    split ``randint(key, (C,), 0, L)`` (int64 with x64 on); also int32
+    spans and a batch of keys."""
+    jk, tk = jax.random.PRNGKey(seed), tf.PRNGKey(seed)
+    a = jax.random.randint(jax.random.fold_in(jk, 777), (1,), 0, 2 ** 30,
+                           jnp.int32)
+    b = tf.randint(tf.fold_in(tk, 777), (1,), 0, 2 ** 30, torch.int32)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for L in (1, 7, 20, 1024):
+        for shape in ((16,), (3, 5)):
+            a = np.asarray(jax.random.randint(jk, shape, 0, L))
+            b = tf.randint(tk, shape, 0, L).numpy()
+            assert a.dtype == b.dtype == np.int64
+            np.testing.assert_array_equal(b, a)
+            a = np.asarray(jax.random.randint(jk, shape, 0, L, jnp.int32))
+            b = tf.randint(tk, shape, 0, L, torch.int32).numpy()
+            assert b.dtype == np.int32
+            np.testing.assert_array_equal(b, a)
+    keys = jax.random.split(jk, 4)
+    want = jax.vmap(lambda k: jax.random.randint(k, (8,), 3, 23))(keys)
+    np.testing.assert_array_equal(
+        tf.randint(tf.split(tk, 4), (8,), 3, 23).numpy(), np.asarray(want))
+    with pytest.raises(ValueError):
+        tf.randint(tk, (2,), 5, 5)

@@ -1,12 +1,20 @@
 """walnuts_tpu_torch: WALNUTS in PyTorch for the NVIDIA H100.
 
 A port of :mod:`walnuts_tpu` (the JAX package, kept as the reference)
-that mirrors its subpackage layout and names.  Two engines:
+that mirrors its subpackage layout and names.  Three WALNUTS engines:
 
 * :func:`run_walnuts`, the scan engine: any of the seven integrators,
   warmup adaptation, full diagnostics, JAX's threefry random stream;
+* :func:`sampler.run_walnuts_streaming`, the streaming engine: the same
+  transition at fixed tuning, with every chain on its own schedule
+  position so that no chain waits at a transition barrier;
 * :func:`run_walnuts_fused`, the fused engine, whose rounds run in the
   hand-written CUDA kernel ``csrc/round_kernel.cu``.
+
+and the isokinetic line: the step kernels ``sampler.IsokineticKernel``
+and ``sampler.HMCKernel`` (``ops.isokinetic``), generic-step NUTS
+(``sampler.run_generic_nuts``) and the fixed-orbit multinomial sampler
+with the WASPS stop (``sampler.run_multinomial``).
 
 Every entry runs on the card unless the caller passes ``device="cpu"``
 (the fused engine's CPU path is the kernel's plain torch twin); without

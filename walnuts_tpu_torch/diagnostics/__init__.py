@@ -1,5 +1,8 @@
-"""Post-hoc MCMC diagnostics: batched multi-chain ESS and Rhat."""
+"""Post-hoc MCMC diagnostics: batched multi-chain ESS and Rhat, and the
+reference's validation statistics."""
 
-from .ess import ess, rhat, split_rhat
+from .ess import ess, ess_per_grad, rhat, split_rhat
+from .stats import index_stat_histogram, qq_normal
 
-__all__ = ["ess", "rhat", "split_rhat"]
+__all__ = ["ess", "ess_per_grad", "rhat", "split_rhat", "qq_normal",
+           "index_stat_histogram"]

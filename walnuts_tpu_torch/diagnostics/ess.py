@@ -2,8 +2,8 @@
 (``walnuts_tpu/diagnostics/ess.py``).
 
 Multi-chain bulk ESS: FFT autocovariance, Geyer initial-monotone
-positive-sequence truncation, cross-chain variance pooling; and
-split-Rhat after Vehtari et al. (2021).
+positive-sequence truncation, cross-chain variance pooling; ESS per
+1000 gradient evaluations; and split-Rhat after Vehtari et al. (2021).
 """
 
 import torch
@@ -51,6 +51,12 @@ def _ess_nc(x):
                                            device=x.device))
     tau = torch.maximum(tau, floor)
     return n * c / tau
+
+
+def ess_per_grad(draws, n_grad_evals):
+    """ESS per 1000 gradient evaluations, the reference's efficiency
+    metric (``mainGaussESS.py:50-55``)."""
+    return 1000.0 * ess(draws) / n_grad_evals
 
 
 def rhat(draws):

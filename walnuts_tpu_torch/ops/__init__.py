@@ -1,11 +1,16 @@
+from . import isokinetic
 from .hamiltonian import hamiltonian, kinetic_energy, refresh_momentum, uturn
 from .integrators import (INTEGRATORS, IntegratorConfig, IntegratorResult,
-                          get_integrator)
+                          adapt_implicit_midpoint_d, adapt_leapfrog_d,
+                          adapt_leapfrog_flow_d, adapt_leapfrog_r2p,
+                          adapt_rescaled_leapfrog_d, adapt_yoshida_d,
+                          fixed_leapfrog, get_integrator)
 from .leapfrog import (STEP_FNS, MultistepResult, PhasePoint,
                        implicit_midpoint_step, leapfrog_flow_step,
                        leapfrog_step, masked_multistep, yoshida_step)
 
 __all__ = [
+    "isokinetic",
     "kinetic_energy",
     "hamiltonian",
     "uturn",
@@ -14,6 +19,13 @@ __all__ = [
     "IntegratorResult",
     "INTEGRATORS",
     "get_integrator",
+    "fixed_leapfrog",
+    "adapt_leapfrog_d",
+    "adapt_yoshida_d",
+    "adapt_leapfrog_flow_d",
+    "adapt_leapfrog_r2p",
+    "adapt_implicit_midpoint_d",
+    "adapt_rescaled_leapfrog_d",
     "PhasePoint",
     "STEP_FNS",
     "MultistepResult",

@@ -1,9 +1,14 @@
 from .driver import (SamplerState, WarmupConfig, init_state, masked_quantile,
                      run_walnuts, sampler_state_from_numpy,
                      sampler_state_to_numpy, sampler_step)
+from .generic_nuts import DIAG_COLS as GENERIC_DIAG_COLS
+from .generic_nuts import generic_nuts_transition, run_generic_nuts
+from .kernels import HMCKernel, IsokineticKernel
 from .megakernel import (MState, mstate_from_numpy, mstate_to_numpy,
                          run_walnuts_fused, run_walnuts_fused_plain)
+from .multinomial import MultinomialConfig, run_multinomial
 from .plans import OrbitSchedule, build_schedule, subtree_checks
+from .streaming import run_walnuts_streaming
 from .transition import TransitionResult, WalnutsConfig, walnuts_transition
 
 __all__ = [
@@ -26,4 +31,12 @@ __all__ = [
     "mstate_to_numpy",
     "run_walnuts_fused",
     "run_walnuts_fused_plain",
+    "run_walnuts_streaming",
+    "IsokineticKernel",
+    "HMCKernel",
+    "generic_nuts_transition",
+    "run_generic_nuts",
+    "GENERIC_DIAG_COLS",
+    "MultinomialConfig",
+    "run_multinomial",
 ]

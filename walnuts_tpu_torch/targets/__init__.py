@@ -1,4 +1,8 @@
-from .analytic import funnel, omega_sumsq, std_gauss
+from .analytic import (corr_gauss, funnel, funnel_rescaled,
+                       ill_conditioned_gauss, mod_funnel, omega_sumsq,
+                       rosenbrock, smile, std_gauss)
 from .base import Target
 
-__all__ = ["Target", "std_gauss", "funnel", "omega_sumsq"]
+__all__ = ["Target", "std_gauss", "corr_gauss", "smile", "rosenbrock",
+           "mod_funnel", "funnel", "funnel_rescaled", "ill_conditioned_gauss",
+           "omega_sumsq"]

@@ -3,8 +3,11 @@
 ``funnel(D)`` has ``omega ~ N(0, scale^2)`` and ``x_i | omega ~
 N(0, e^omega)`` for ``i = 1..D-1``; ``funnel(101)`` is the benchmark's
 configuration.  The batched closed forms below follow the JAX version's
-operation order, so the two agree to rounding in float64.  The rest of
-the JAX module's targets are ROADMAP queue 1 item 2.
+operation order, so the two agree to rounding in float64; ``smile``,
+``rosenbrock`` and ``mod_funnel`` take their gradients from autograd, as
+the JAX version takes them from autodiff.  Constant vectors (the
+rescaled funnel's scales, the ill-conditioned Gaussian's variances) are
+built in float64 and cast to the position's dtype where they are used.
 """
 
 import math
@@ -69,3 +72,93 @@ def funnel(dim: int, scale: float = 3.0, generated=None) -> Target:
 
     return Target(logp, dim, name=f"funnel_{dim}", logp_grad=logp_grad,
                   generated=generated, kernel_id="funnel", kernel_param=scale)
+
+
+def corr_gauss(rho: float = 0.5) -> Target:
+    """Bivariate unit-variance normal with correlation ``rho``
+    (``targetDistr.py:25-31``)."""
+    tmp = 1.0 - rho ** 2
+
+    def logp(q):
+        return -0.5 * q[0] ** 2 - (0.5 / tmp) * (q[1] - rho * q[0]) ** 2
+
+    def logp_grad(q):
+        q0, q1 = q[..., 0], q[..., 1]
+        lp = -0.5 * q0 ** 2 - (0.5 / tmp) * (q1 - rho * q0) ** 2
+        g = torch.stack([-(q0 - rho * q1) / tmp, -(q1 - rho * q0) / tmp],
+                        dim=-1)
+        return lp, g
+
+    return Target(logp, 2, name=f"corr_gauss_rho{rho}", logp_grad=logp_grad)
+
+
+def smile() -> Target:
+    """``q0 ~ N(0, 1)``, ``q1 | q0 ~ N(q0^2, 1)`` (``targetDistr.py:34-38``)."""
+
+    def logp(q):
+        return -0.5 * q[0] ** 2 - 0.5 * (q[1] - q[0] ** 2) ** 2
+
+    return Target(logp, 2, name="smile")
+
+
+def rosenbrock() -> Target:
+    """Rosenbrock-shaped density (``test/targets.py:14-21``)."""
+
+    def logp(q):
+        return -0.5 * q[0] ** 2 - 0.5 * (q[1] - q[0] ** 2) ** 2 / 0.19 ** 2
+
+    return Target(logp, 2, name="rosenbrock")
+
+
+def mod_funnel() -> Target:
+    """Smoothed 2-D funnel with bounded curvature
+    (``targetDistr.py:41-51``)."""
+
+    def logp(q):
+        x, y = q[0], q[1]
+        t2 = 1.0 + torch.exp(-3.0 * x)
+        return -0.5 * (t2 * y ** 2 + torch.log(1.0 / t2) + x ** 2)
+
+    return Target(logp, 2, name="mod_funnel")
+
+
+def funnel_rescaled(dim: int, scale: float = 3.0) -> Target:
+    """Funnel with the omega coordinate pre-scaled to unit prior sd
+    (``targetDistr.py:81-86``)."""
+    base = funnel(dim, scale)
+    s64 = torch.ones(dim, dtype=torch.float64)
+    s64[0] = scale
+
+    def s_for(q):
+        return s64.to(dtype=q.dtype, device=q.device)
+
+    def logp(q):
+        return base._logp(s_for(q) * q)
+
+    def logp_grad(q):
+        s = s_for(q)
+        lp, g = base.logp_grad(s * q)
+        return lp, s * g
+
+    return Target(logp, dim, name=f"funnel_rescaled_{dim}",
+                  logp_grad=logp_grad)
+
+
+def ill_conditioned_gauss(dim: int, kappa: float = 1e4) -> Target:
+    """Diagonal Gaussian with log-linearly spaced variances in
+    ``[1, kappa]``."""
+    var64 = 10.0 ** torch.linspace(0.0, math.log10(kappa), dim,
+                                   dtype=torch.float64)
+
+    def var_for(q):
+        return var64.to(dtype=q.dtype, device=q.device)
+
+    def logp(q):
+        return -0.5 * torch.sum(q * q / var_for(q))
+
+    def logp_grad(q):
+        var = var_for(q)
+        return -0.5 * torch.sum(q * q / var, dim=-1), -q / var
+
+    return Target(logp, dim, name=f"ill_gauss_{dim}_k{kappa:g}",
+                  logp_grad=logp_grad)

@@ -10,3 +10,7 @@ against it casts it to the run dtype first.
 
 LOG_ZERO = -700.0
 WT_SUM_THRESH = 2.7189761758644324e-304  # exp(LOG_ZERO + 1)
+
+# Isokinetic blow-up guard: a B-kick's rapidity ``h |g| / (2 (d - 1))``
+# above it marks the step as failed (``isokinetic/microCanonical.py:12``).
+ISOKINETIC_DELTA_THRESH = 100.0

@@ -150,6 +150,40 @@ def uniform(key, shape, dtype=torch.float64, minval=0.0, maxval=1.0):
     return torch.maximum(lo_v, fma(floats, hi_v - lo_v, lo_v))
 
 
+def randint(key, shape, minval, maxval, dtype=torch.int64):
+    """``jax.random.randint(key, shape, minval, maxval, dtype)`` for int
+    bounds with ``0 < maxval - minval < 2^31``: two words of random
+    bits per value (``split(key)``'s two keys), folded modulo the span
+    as JAX folds them.  ``dtype`` is ``torch.int32`` (32-bit words,
+    uint32 arithmetic) or ``torch.int64`` (64-bit words; JAX's default
+    int with x64 on)."""
+    minval, maxval = int(minval), int(maxval)
+    span = maxval - minval
+    if not 0 < span < 2 ** 31:
+        raise ValueError(f"randint needs 0 < maxval - minval < 2^31, got "
+                         f"[{minval}, {maxval})")
+    k1, k2 = split(key).unbind(-2)
+    if dtype == torch.int32:
+        hi, lo = random_bits(k1, 32, shape), random_bits(k2, 32, shape)
+        # 2^32 mod span, then the two words' residues, in uint32
+        mult = (((1 << 16) % span) ** 2 & _M32) % span
+        off = ((hi % span) * mult & _M32) + lo % span
+        off = (off & _M32) % span
+    elif dtype == torch.int64:
+        # a 64-bit word (h, l) is h 2^32 + l; with span < 2^31 no
+        # product below leaves int64, as none wraps in JAX's uint64
+        def rem64(words):
+            h, l = words
+            return ((h % span) * ((1 << 32) % span) + l % span) % span
+
+        mult = (((1 << 32) % span) ** 2) % span
+        off = (rem64(random_bits(k1, 64, shape)) * mult
+               + rem64(random_bits(k2, 64, shape))) % span
+    else:
+        raise ValueError(f"randint draws int32 or int64, got {dtype}")
+    return (off + minval).to(dtype)
+
+
 def bernoulli(key, p=0.5, shape=(), dtype=torch.float64):
     """``jax.random.bernoulli`` (mode ``"low"``): ``uniform < p``, drawn
     in ``p``'s dtype (float64 for a Python float under x64)."""
