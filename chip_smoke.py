@@ -19,7 +19,13 @@ the multinomial sampler (float64 against the CPU), then config 5's
 D = 10^4, 32 chains) with its ESS per 1000 gradient evaluations.  None
 of these three engines reaches a hand-written kernel (nor does their
 JAX counterpart reach a Pallas kernel), so each phase also prints the
-round kernel's launch count over its run: 0.
+round kernel's launch count over its run: 0.  Phase 9 runs the
+Stock-Watson model (D = 756) through the fused engine, whose kernel
+fuses its gradient: float64 kernel against twin under the example's
+three protocols, then the example's walnuts_d arm at 256 chains with
+its speed, kernel time beside its bound and medians beside the
+committed example's bands; 9c holds the paper-pseudocode mode and the
+Monge integrators on the card against the CPU.
 
 Run from the repository root, with no arguments:
 
@@ -45,6 +51,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+CARD = "card not read"  # nvidia-smi's name and power limit, set in main()
 # One H100 SXM at its published peaks (NVIDIA's data sheet): HBM3 bytes/s
 # and float32 FLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
@@ -53,6 +60,15 @@ F32_FLOP_S = 67e12
 # half kicks and the drift (3 multiply-adds), the two squared norms
 # (2 multiply-adds) and the gradient (1 multiply), 2 operations each.
 FLOPS_PER_COORD = 12
+# Stock-Watson's micro step per coordinate: the leapfrog's 3
+# multiply-adds and the kinetic energy's 1 (8 operations), and its
+# gradient, which per series index (three coordinates) does 3 prefix
+# and 3 suffix scan additions, 5 multiply-adds for the states and the
+# innovations' squares, 3 exponentials (counted as one operation
+# each), 7 multiplies and 6 additions for the residual terms and c,
+# and 4 multiply-adds for the gradient entries and the tSigma dots:
+# 3 + 3 + 10 + 3 + 7 + 6 + 8 = 40 per index, 14 per coordinate.
+SW_FLOPS_PER_COORD = 8 + 14
 
 
 def log(msg):
@@ -75,6 +91,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     kind = torch.cuda.get_device_name(0)
+    global CARD
+    CARD = smi[0] if smi else "nvidia-smi: unavailable"
     log(f"phase 0 device: torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {kind} | count {torch.cuda.device_count()}")
     log(smi[0] if smi else "nvidia-smi: unavailable")
@@ -96,15 +114,18 @@ def main():
     scan_state, scan_s_per_it = phase_scan(tw, rk, dev)
     phase_stream(tw, rk, dev, scan_state, scan_s_per_it)
     phase_iso(tw, rk, dev)
-    log(json.dumps({"kernels": [{
-        "name": "walnuts_round_kernel",
-        "route": "cuda",
-        "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
-        "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "regs": attrs["regs"], "warps_per_sm": attrs["warps_per_sm"]}]}))
+    sw = phase_sw(tw, mk, rk, dev)
+    phase_modes(tw, rk, dev)
+    kernel = {"route": "cuda",
+              "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
+              "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
+              "library_ms": None}
+    log(json.dumps({"kernels": [
+        dict(kernel, name="walnuts_round_kernel", launches=launches,
+             max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, regs=attrs["regs"],
+             warps_per_sm=attrs["warps_per_sm"]),
+        dict(kernel, name="walnuts_round_kernel[stock_watson]", **sw)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -130,15 +151,18 @@ def phase_build(_build, rk):
             used = next(x for x in lines[i + 1:] if "Used" in x)
             ptxas[m.groups()] = (f"{stack.strip()}; "
                                  f"{used.split(':')[1].strip()}")
+    shapes = [(tgt, tid, D) for tgt, tid in (("funnel", "0"),
+                                             ("std_gauss", "1"))
+              for D in (32, 64, 96, 128, 160)]  # DPL 1-4, then 0 (D > 128)
+    shapes.append(("stock_watson", "2", 756))  # DPL 0 at every D
     for prec, dtype in (("f", torch.float32), ("d", torch.float64)):
-        for tgt, tid in (("funnel", "0"), ("std_gauss", "1")):
-            for D in (32, 64, 96, 128, 160):  # DPL 1-4, then 0 (D > 128)
-                a = rk.kernel_attributes(dtype, tgt, D)
-                dpl = a["dpl"]
-                log(f"  round_kernel<{dtype}, {tgt}, DPL={dpl}>: ptxas "
-                    f"{ptxas.get((prec, tid, str(dpl)), 'not found')} | "
-                    f"runtime {a['regs']} registers, {a['local_bytes']} "
-                    f"local bytes, {a['warps_per_sm']} warps/SM")
+        for tgt, tid, D in shapes:
+            a = rk.kernel_attributes(dtype, tgt, D)
+            dpl = a["dpl"]
+            log(f"  round_kernel<{dtype}, {tgt}, DPL={dpl}>: ptxas "
+                f"{ptxas.get((prec, tid, str(dpl)), 'not found')} | "
+                f"runtime {a['regs']} registers, {a['local_bytes']} "
+                f"local bytes, {a['warps_per_sm']} warps/SM")
     main = rk.kernel_attributes(torch.float32, "funnel", 101)
     log(f"  main path (float32 funnel, D=101): {main}")
     return main
@@ -167,8 +191,10 @@ def _banks_compare(a, b, *, rtol, atol, slab_rtol=None, chains=None):
         r = slab_rtol if slab and slab_rtol is not None else rtol
         x, y = x.double(), y.double()
         fin = torch.isfinite(x) & torch.isfinite(y)
+        inf = torch.isinf(x)  # NaN entries must sit at the same places
         if not torch.equal(torch.isfinite(x), torch.isfinite(y)) or \
-                not torch.equal(x[~fin], y[~fin]):
+                not torch.equal(torch.isnan(x), torch.isnan(y)) or \
+                not torch.equal(x[inf], y[inf]):
             raise AssertionError(f"{name}: non-finite entries differ")
         d = (x[fin] - y[fin]).abs()
         bad = d > atol + r * y[fin].abs()
@@ -398,7 +424,7 @@ def phase_main(tw, mk, rk, dev):
     return warm, launches
 
 
-def _bound(rk, b0, b1, periods, warmup):
+def _bound(rk, b0, b1, periods, warmup, flops_per_coord=FLOPS_PER_COORD):
     """Least ms a launch could take on an H100 SXM for the work between
     bank sets ``b0`` and ``b1`` (``periods`` launches apart): the larger
     of two times.  One is the bytes over the HBM rate: the state that is
@@ -422,8 +448,8 @@ def _bound(rk, b0, b1, periods, warmup):
     grads = int((b1.si[gc].long() - b0.si[gc].long()).sum()) / periods
     nbytes = 2 * state + draws * (b0.samples.shape[2] + 24) * isz
     byte_ms = nbytes / HBM_BYTES_S * 1e3
-    op_ms = grads * D * FLOPS_PER_COORD / F32_FLOP_S * 1e3
-    gflop = grads * D * FLOPS_PER_COORD / 1e9
+    op_ms = grads * D * flops_per_coord / F32_FLOP_S * 1e3
+    gflop = grads * D * flops_per_coord / 1e9
     detail = (f"{nbytes / 1e6:.1f} MB moved ({2 * state / 1e6:.1f} MB of "
               f"state in and out) = {byte_ms:.4f} ms at 3.35 TB/s; "
               f"{grads:.0f} grad evals = {gflop:.3f} GFLOP = {op_ms:.4f} ms "
@@ -642,8 +668,9 @@ def _profiled(fn):
 
 # Phase 7b streams this many transitions per chain at the README width
 # from 6b's adapted state (the README runs 2000; the cut keeps the run
-# near 60 s at the ~3.3 s per transition this phase measured on an H100).
-STREAM_ITERS = 20
+# near 40 s at the ~4 s per transition this phase measured on an H100,
+# so that the whole smoke, phase 9 included, stays near 600 s).
+STREAM_ITERS = 10
 # Phase 8b runs config 5's iso_std arm (D = 10^4, 32 chains, m = 9;
 # the example runs 400 iterations) for this many generic-NUTS
 # transitions, then the multinomial sampler (L = 20, no warmup) for this
@@ -863,6 +890,322 @@ def phase_iso(tw, rk, dev):
             f"(q0, q_last, radius) {[round(float(x), 3) for x in epg]}; "
             f"radius mean {float(draws[..., 2].mean()):.1f} against D = {D}; "
             f"{extra}; round-kernel launches {rk.launches}")
+
+
+# Phase 9b runs the walnuts_d arm of examples/stock_watson.py at its
+# full width: the proper model (D = 3T = 756), 256 chains, m = 10, H0 =
+# 0.1, delta0 = 0.3, min_c = 3, fixed tuning, float32 with the bf16
+# slab, round-capped invocations of SW_ROUNDS rounds.  The example's 500
+# burn-in and 400 sampling transitions are cut to these, which keep the
+# phase near 80 s at the ~0.1 s per transition this phase measured on an
+# H100.
+SW_CHAINS, SW_M, SW_H0, SW_DELTA0 = 256, 10, 0.1, 0.3
+SW_BURNIN, SW_ITERS, SW_ROUNDS = 250, 250, 2500
+SW_ADAM_STEPS, SW_ADAM_LR = 4000, 0.02
+
+
+def _sw_find_mode(target, dev):
+    """``examples/stock_watson.py:find_mode`` with ``torch.optim.Adam``:
+    ``SW_ADAM_STEPS`` steps of ascent on the log density from zeros in
+    float32.  Returns the point and its log density."""
+    import torch
+
+    q = torch.zeros(target.dim, device=dev, dtype=torch.float32,
+                    requires_grad=True)
+    opt = torch.optim.Adam([q], lr=SW_ADAM_LR)
+    for _ in range(SW_ADAM_STEPS):
+        _, g = target.logp_grad(q.detach())
+        q.grad = -g
+        opt.step()
+    q = q.detach()
+    return q, float(target.logp(q))
+
+
+def _sw_stream(mk, seed, q0, h, dl, *, target, cfg, num_iter, ring_rows=None,
+               limit_s=400):
+    """One min_per_chain run as ``SW_ROUNDS``-round invocations that
+    resume through ``mk_state`` (the example's ``_stream``).  Returns
+    the final state and the number of invocations."""
+    kw = dict(target=target, cfg=cfg, num_iter=num_iter,
+              stop_mode="min_per_chain", rounds=SW_ROUNDS, diag_rows=8,
+              ring_rows=ring_rows, device=q0.device)
+    t0 = time.perf_counter()
+    st, calls = None, 0
+    while True:
+        st = mk.run_walnuts_fused(seed, q0, h, dl, mk_state=st, **kw)[-1]
+        calls += 1
+        if int(st.it.min()) >= num_iter:
+            return st, calls
+        if time.perf_counter() - t0 > limit_s:
+            raise AssertionError(f"Stock-Watson reached {int(st.it.min())} "
+                                 f"of {num_iter} transitions in {limit_s} s")
+
+
+def _contract_ratio(a, b, rtol, atol):
+    """Largest ``|x - y| / (atol + rtol |y|)`` over the float banks."""
+    import torch
+
+    worst = 0.0
+    for x, y in ((a.sf, b.sf), (a.vx, b.vx), (a.slab_q, b.slab_q),
+                 (a.slab_v, b.slab_v), (a.samples, b.samples),
+                 (a.diags, b.diags)):
+        x, y = x.double(), y.double()
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        if fin.any():
+            r = (x[fin] - y[fin]).abs() / (atol + rtol * y[fin].abs())
+            worst = max(worst, float(r.max()))
+    return worst
+
+
+def phase_sw(tw, mk, rk, dev):
+    """Stock-Watson through the fused engine on the card.  (a) float64,
+    the proper model at full D = 756, 32 chains from the mode plus
+    0.5-sd jitter, 160 rounds under each of the example's three
+    protocols, kernel against its plain twin: integer banks equal,
+    floats within the exact contract where it holds, else the adaptive
+    one.  (b) the example's walnuts_d arm at full width (``SW_*``), with
+    a one-launch float32 check of the kernel against its twin at that
+    shape, its speed, its kernel time per launch beside its bound, and
+    its medians beside the committed example's bands.  Returns the
+    kernels line's entry."""
+    import torch
+    from walnuts_tpu_torch.utils.parity import ADAPTIVE, EXACT
+
+    target = tw.targets.stock_watson(proper=True)
+    D, T = target.dim, target.kernel_args["T"]
+    t0 = time.perf_counter()
+    mode, mode_lp = _sw_find_mode(target, dev)
+    log(f"phase 9 Stock-Watson mode: Adam {SW_ADAM_STEPS} steps, lr "
+        f"{SW_ADAM_LR}, from zeros, float32: logp {mode_lp:.2f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) the three protocols (examples/stock_watson.py:CONFIGS), f64
+    # (m cut so that 160 rounds complete transitions and store draws)
+    arms = (("walnuts_d", "adapt_leapfrog_d", 0.1, dict(min_c=3), 4, 4),
+            ("walnuts_r2p", "adapt_leapfrog_r2p", 0.1, dict(min_c=3), 4, 4),
+            ("nuts", "fixed_leapfrog", 0.002, {}, 6, 1))
+    g = torch.Generator(device=dev).manual_seed(1)
+    C = 32
+    q0 = mode.double()[None] + 0.5 * torch.randn(
+        C, D, generator=g, device=dev, dtype=torch.float64)
+    it = rk.I_FIELDS.index("it")
+    for tag, integ, h0, igr, m, unroll in arms:
+        kw = dict(target=target, cfg=tw.WalnutsConfig(
+            m=m, integrator=integ, igr=tw.IntegratorConfig(**igr)),
+            num_iter=50, stop_mode="min_per_chain", rounds=160, diag_rows=8,
+            micro_unroll=unroll, device=dev)
+        h = torch.full((C,), h0, dtype=torch.float64, device=dev)
+        dl = torch.full((C,), SW_DELTA0, dtype=torch.float64, device=dev)
+        before = rk.launches
+        a = rk.pack(mk.run_walnuts_fused(31, q0, h, dl, **kw)[-1])
+        if rk.launches <= before:
+            raise AssertionError("9a: the kernel path made no launch")
+        b = rk.pack(mk.run_walnuts_fused_plain(31, q0, h, dl, **kw)[-1])
+        torch.cuda.synchronize()
+        try:
+            err = _banks_compare(a, b, **EXACT)
+            held = "EXACT holds"
+        except AssertionError as e:
+            if "integer" in str(e):
+                raise
+            err = _banks_compare(a, b, **ADAPTIVE)
+            held = f"EXACT does not hold ({e}); ADAPTIVE holds"
+        log(f"phase 9a f64 kernel vs plain, Stock-Watson {tag} ({integ}, "
+            f"h {h0}, m={m}, micro_unroll={unroll}) D={D} C={C}, 160 "
+            f"rounds: integer banks equal, max abs float diff {err:.3e}; "
+            f"{held}; worst error over the EXACT bound "
+            f"{_contract_ratio(a, b, **EXACT):.3g}, over the ADAPTIVE bound "
+            f"{_contract_ratio(a, b, **ADAPTIVE):.3g}; draws "
+            f"{int(a.si[it].sum())}")
+
+    # (b) the walnuts_d arm at full width
+    C = SW_CHAINS
+    cfg = tw.WalnutsConfig(m=SW_M, integrator="adapt_leapfrog_d",
+                           igr=tw.IntegratorConfig(min_c=3))
+    g = torch.Generator(device=dev).manual_seed(0)
+    q0 = mode[None] + 0.5 * torch.randn(C, D, generator=g, device=dev)
+    h = torch.full((C,), SW_H0, device=dev)
+    dl = torch.full((C,), SW_DELTA0, device=dev)
+
+    # one launch of the kernel against its twin at this shape (f32)
+    kw = dict(target=target, cfg=cfg, num_iter=SW_ITERS,
+              stop_mode="min_per_chain", rounds=16, diag_rows=8, device=dev)
+    launches = rk.launches
+    a = rk.pack(mk.run_walnuts_fused(21, q0, h, dl, **kw)[-1])
+    b = rk.pack(mk.run_walnuts_fused_plain(21, q0, h, dl, **kw)[-1])
+    torch.cuda.synchronize()
+    rk.launches = launches
+    agree = (a.si == b.si).all(0)
+    frac = float(agree.float().mean())
+    if frac < 0.99:
+        raise AssertionError(f"9b f32: integer state agrees on {frac:.4f} "
+                             "of chains")
+    cols = agree.nonzero().flatten()
+    tol = dict(rtol=1e-4, atol=1e-3, slab_rtol=2.0 ** -7)
+    f32_err = _banks_compare(
+        rk.Banks(a.sf, a.si, a.vx, a.slab_q.float(), a.slab_v.float(),
+                 a.samples, a.diags),
+        rk.Banks(b.sf, b.si, b.vx, b.slab_q.float(), b.slab_v.float(),
+                 b.samples, b.diags), chains=cols, **tol)
+    log(f"phase 9b f32/bf16 kernel vs plain at the arm's shape (C={C}, "
+        f"D={D}), 16 rounds: integer state equal on {frac:.4f} of chains; "
+        f"on those, max abs float diff {f32_err:.3e} (rtol 1e-4, atol 1e-3, "
+        f"slab rtol 2^-7)")
+
+    rk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    burn, burn_calls = _sw_stream(mk, 22, q0, h, dl, target=target, cfg=cfg,
+                                  num_iter=SW_BURNIN, ring_rows=8)
+    torch.cuda.synchronize()
+    t_burn = time.perf_counter() - t0
+    burn_launches = rk.launches
+    t0 = time.perf_counter()
+    st, calls = _sw_stream(mk, 23, burn.qc, h, dl, target=target, cfg=cfg,
+                           num_iter=SW_ITERS)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    launches = rk.launches
+    if launches == 0:
+        raise AssertionError("9b never launched the kernel")
+    draws = st.samples
+    if tuple(draws.shape) != (SW_ITERS, C, D) or \
+            not bool(torch.isfinite(draws).all()):
+        raise AssertionError(f"9b: bad draws {tuple(draws.shape)}")
+    if int(st.it.min()) < SW_ITERS:
+        raise AssertionError("9b: a chain is short of its quota")
+    grads = (int(burn.grad_ct.to(torch.int64).sum())
+             + int(st.grad_ct.to(torch.int64).sum()))
+    wall = t_burn + t_draw
+    depth = st.diags[..., 20].double()
+    log(f"phase 9b Stock-Watson walnuts_d arm: proper model D={D} C={C} "
+        f"m={SW_M} H0 {SW_H0} delta0 {SW_DELTA0} min_c=3 f32, fixed "
+        f"tuning: {SW_BURNIN} burn-in transitions in {t_burn:.2f} s over "
+        f"{burn_calls} calls ({burn_launches} launches), {SW_ITERS} draws "
+        f"in {t_draw:.2f} s over {calls} calls ({launches - burn_launches} "
+        f"launches): {grads} grad evals = {grads / wall:.1f} grad-evals/s, "
+        f"{C * SW_ITERS / t_draw:.1f} draws/s; orbit depth of the last "
+        f"diagnostics rows mean {float(depth.mean()):.2f}; kernel launches "
+        f"{launches}; on {CARD}")
+
+    # medians beside the committed example's bands (walnuts_d arm,
+    # examples/out_stock_watson.json; each band is the mean over the
+    # block's coordinates of a quantile)
+    x = draws.double()
+    bands = json.loads((HERE / "examples" / "out_stock_watson.json")
+                       .read_text())["runs"]["walnuts_d"]["bands"]
+    tau = x[..., 2 * T:3 * T].reshape(-1, T)
+    taus = {t: float(tau[:, t].median()) for t in (0, T // 2, T - 1)}
+    log(f"phase 9b medians over {SW_ITERS} draws x {C} chains (reported, "
+        f"not a gate at this depth): sigma {float(x[..., 0].median()):.4f} "
+        f"(example q10/q50/q90 {bands['sigma']['q10']:.4f} / "
+        f"{bands['sigma']['q50']:.4f} / {bands['sigma']['q90']:.4f}); tau "
+        f"at t = {list(taus)}: {[round(v, 4) for v in taus.values()]}, mean "
+        f"over t of the median {float(tau.median(0).values.mean()):.4f} "
+        f"(example band {bands['tau']['q10']:.4f} / "
+        f"{bands['tau']['q50']:.4f} / {bands['tau']['q90']:.4f})")
+
+    # kernel and twin time per launch at this shape, from the burnt-in
+    # chains; these launches do not count
+    st0 = mk.init_state(burn.qc, h, dl, target=target, cfg=cfg, warmup=None,
+                        num_iter=SW_ITERS, diag_rows=8)
+    spec = rk.RoundSpec(target=target, cfg=cfg, warmup=None,
+                        stop_mode="min_per_chain", num_iter=SW_ITERS,
+                        micro_unroll=1, seed=23)
+    counted = rk.launches
+
+    def timed(fn, periods):
+        banks = rk.pack(st0)
+        fn(banks, 0, spec)  # warm the path
+        banks = rk.pack(st0)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for i in range(periods):
+            fn(banks, i * mk.FLUSH_EVERY, spec)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / periods, banks
+
+    times = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "kernel", "plain"):
+        fn = rk.run_rounds if name == "kernel" else rk.run_rounds_plain
+        t, banks = timed(fn, 16 if name == "kernel" else 2)
+        times[name].append(t)
+        if name == "kernel":
+            after = banks
+    rk.launches = counted
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    bound = _bound(rk, rk.pack(st0), after, 16, None, SW_FLOPS_PER_COORD)
+    log(f"phase 9b timing: Stock-Watson C={C} D={D} f32, 256 rounds: kernel "
+        f"{ms:.4f} ms per 16-round launch "
+        f"({[round(t, 4) for t in times['kernel']]}), plain {plain_ms:.3f} ms "
+        f"({[round(t, 3) for t in times['plain']]}); bound {bound[0]:.4f} ms "
+        f"({bound[1]}: {bound[2]}), kernel at {bound[0] / ms:.1%} of it; on "
+        f"{CARD}")
+    return dict(launches=launches, max_abs_err=f32_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+
+
+def phase_modes(tw, rk, dev):
+    """9c: the paper-pseudocode mode and the Monge integrators (plain
+    torch: their JAX counterparts reach no Pallas kernel), float64 on
+    the card and on the CPU at a small size, exact contract; the round
+    kernel's launches over them are 0."""
+    import numpy as np
+    import torch
+    from walnuts_tpu_torch.ops import monge
+    from walnuts_tpu_torch.utils import threefry
+    from walnuts_tpu_torch.utils.parity import EXACT
+
+    rk.launches = 0
+    C, D = 16, 6
+    q0 = 0.5 * np.random.default_rng(3).normal(size=(C, D))
+    kw = dict(target=tw.targets.funnel(D), inv_mass=1.0, macro_step=0.5,
+              max_depth=5, max_error=0.2, iter_warmup=2, iter_sample=4)
+    t0 = time.perf_counter()
+    s_g = tw.sampler.walnuts_pseudo(5, q0, device=dev, **kw)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    s_c = tw.sampler.walnuts_pseudo(5, q0, device="cpu", **kw)
+    if s_g.device != dev:
+        raise AssertionError("walnuts_pseudo did not run on the card")
+    err = _assert_same("9c pseudocode draws", s_c, s_g, EXACT)
+    res = [tw.sampler.walnuts_step_pseudo(
+        threefry.PRNGKey(6, d), torch.from_numpy(q0).to(d), **{
+            k: v for k, v in kw.items() if not k.startswith("iter")})
+        for d in ("cpu", dev)]
+    err = max(err, _assert_same("9c pseudocode step q", res[0].q, res[1].q,
+                                EXACT))
+    for f in ("n_grad", "depth_stopped"):
+        if not torch.equal(getattr(res[0], f), getattr(res[1], f).cpu()):
+            raise AssertionError(f"9c pseudocode step: {f} differs")
+    log(f"phase 9c pseudocode mode f64 card == CPU: funnel({D}) C={C} macro "
+        f"step 0.5, max depth 5, 2 + 4 transitions and one step: n_grad and "
+        f"depth_stopped equal, max abs float diff {err:.3e} (rtol "
+        f"{EXACT['rtol']:g}, atol {EXACT['atol']:g}); grad evals of the "
+        f"step {int(res[1].n_grad.sum())}; wall {t_gpu:.2f} s on the card")
+
+    target = tw.targets.corr_gauss(0.95)
+    rng = np.random.default_rng(4)
+    q, p = 0.5 * rng.normal(size=(C, 2)), rng.normal(size=(C, 2))
+    h = np.linspace(0.05, 0.2, C)
+    out = {}
+    for d in ("cpu", dev):
+        qd, pd, hd = (torch.from_numpy(x).to(d) for x in (q, p, h))
+        s0 = monge.monge_init(target, qd, pd)
+        s1, lj = monge.monge_int(target, s0, hd, 8)
+        eps = monge.monge_eps_int(target, qd, pd, key=threefry.PRNGKey(7, d),
+                                  h=0.1, nstep=4)
+        ode = monge.monge_int_adapt(target, qd, pd, 0.5)
+        out[str(d)] = [x.double() for x in (*s1, lj, *eps, *ode)]
+    errs = [_assert_same(f"9c monge {i}", a, b, EXACT)
+            for i, (a, b) in enumerate(zip(out["cpu"], out[str(dev)]))]
+    log(f"phase 9c Monge integrators f64 card == CPU: corr_gauss(0.95) C={C}: "
+        f"monge_int (8 steps, log-Jacobian), monge_eps_int (4 steps), "
+        f"monge_int_adapt (t = 0.5, rtol/atol 1e-10): max abs diff "
+        f"{max(errs):.3e} (rtol {EXACT['rtol']:g}, atol {EXACT['atol']:g}); "
+        f"round-kernel launches over 9c {rk.launches}")
 
 
 def _counts(x):

@@ -110,6 +110,39 @@ def test_kernel_per_chain_warmup_at_d80_within_the_engines_drift(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["adapt_leapfrog_d",
+                                        "adapt_leapfrog_r2p",
+                                        "fixed_leapfrog"])
+def test_stock_watson_kernel_matches_plain_twin_on_gpu(cuda_device,
+                                                       integrator):
+    """Stock-Watson (the proper model, D = 756, its ``[sigma, z, x,
+    tau]`` summary stored) under each of the example's protocols:
+    float64, 8 chains, 64 rounds of up to four micro steps, kernel
+    against its twin under the exact contract."""
+    target = tw.targets.stock_watson(proper=True)
+    C = 8
+    g = torch.Generator().manual_seed(3)
+    q0 = (0.1 * torch.randn(C, target.dim, generator=g,
+                            dtype=torch.float64)).to(cuda_device)
+    igr = {} if integrator == "fixed_leapfrog" else dict(min_c=2)
+    kw = dict(target=target, num_iter=12, stop_mode="min_per_chain",
+              rounds=64, diag_rows=4, micro_unroll=4,
+              cfg=tw.WalnutsConfig(m=4, integrator=integrator,
+                                   igr=tw.IntegratorConfig(**igr)))
+    h = torch.full((C,), 0.02, dtype=torch.float64, device=cuda_device)
+    dl = torch.full((C,), 0.3, dtype=torch.float64, device=cuda_device)
+    launches = rk.launches
+    a = rk.pack(mk.run_walnuts_fused(9, q0, h, dl, **kw)[-1])
+    assert rk.launches == launches + 4
+    b = rk.pack(mk.run_walnuts_fused_plain(9, q0, h, dl, **kw)[-1])
+    torch.cuda.synchronize()
+    assert int(a.si[rk.I_FIELDS.index("grad_ct")].sum()) > 0
+    _assert_banks_close(a, b, rtol=1e-9, atol=1e-12)
+    assert rk.kernel_attributes(torch.float64, "stock_watson", 756)[
+        "dpl"] == 0
+
+
+@pytest.mark.cuda
 def test_float32_momentum_cosine_is_cosf_on_every_draw(cuda_device):
     """The float32 kernel's cos(2 pi u) (cosf's fast path without its
     large-argument branch) equals cosf bit for bit on all 2^24 draws."""

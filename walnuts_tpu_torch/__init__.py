@@ -11,20 +11,24 @@ that mirrors its subpackage layout and names.  Three WALNUTS engines:
 * :func:`run_walnuts_fused`, the fused engine, whose rounds run in the
   hand-written CUDA kernel ``csrc/round_kernel.cu``.
 
-and the isokinetic line: the step kernels ``sampler.IsokineticKernel``
+the isokinetic line: the step kernels ``sampler.IsokineticKernel``
 and ``sampler.HMCKernel`` (``ops.isokinetic``), generic-step NUTS
 (``sampler.run_generic_nuts``) and the fixed-orbit multinomial sampler
-with the WASPS stop (``sampler.run_multinomial``).
+with the WASPS stop (``sampler.run_multinomial``); the paper-pseudocode
+mode (``sampler.walnuts_pseudo``) and the Monge-metric integrators
+(``ops.monge``).  The targets include Stock-Watson
+(``targets.stock_watson``), whose gradient the round kernel fuses.
 
 Every entry runs on the card unless the caller passes ``device="cpu"``
 (the fused engine's CPU path is the kernel's plain torch twin); without
-a card the default raises.  dtype comes from ``q0``.
+a card the default raises.  ``walnuts_transition``, the step functions
+and the ops run on their inputs' device.  dtype comes from ``q0``.
 """
 
 from . import diagnostics, ops, sampler, targets, utils
 from .ops import IntegratorConfig, get_integrator
 from .sampler import (SamplerState, WalnutsConfig, WarmupConfig, run_walnuts,
-                      run_walnuts_fused)
+                      run_walnuts_fused, walnuts_transition)
 from .targets import Target
 
 __all__ = [
@@ -39,6 +43,7 @@ __all__ = [
     "WalnutsConfig",
     "WarmupConfig",
     "SamplerState",
+    "walnuts_transition",
     "run_walnuts",
     "run_walnuts_fused",
 ]

@@ -1,4 +1,4 @@
-from . import isokinetic
+from . import isokinetic, monge
 from .hamiltonian import hamiltonian, kinetic_energy, refresh_momentum, uturn
 from .integrators import (INTEGRATORS, IntegratorConfig, IntegratorResult,
                           adapt_implicit_midpoint_d, adapt_leapfrog_d,
@@ -11,6 +11,7 @@ from .leapfrog import (STEP_FNS, MultistepResult, PhasePoint,
 
 __all__ = [
     "isokinetic",
+    "monge",
     "kinetic_energy",
     "hamiltonian",
     "uturn",

@@ -8,6 +8,8 @@ from .megakernel import (MState, mstate_from_numpy, mstate_to_numpy,
                          run_walnuts_fused, run_walnuts_fused_plain)
 from .multinomial import MultinomialConfig, run_multinomial
 from .plans import OrbitSchedule, build_schedule, subtree_checks
+from .pseudocode import (PseudoResult, choose_micro_steps, micro_steps_logp,
+                         stable_steps, walnuts_pseudo, walnuts_step_pseudo)
 from .streaming import run_walnuts_streaming
 from .transition import TransitionResult, WalnutsConfig, walnuts_transition
 
@@ -39,4 +41,10 @@ __all__ = [
     "GENERIC_DIAG_COLS",
     "MultinomialConfig",
     "run_multinomial",
+    "PseudoResult",
+    "stable_steps",
+    "choose_micro_steps",
+    "micro_steps_logp",
+    "walnuts_step_pseudo",
+    "walnuts_pseudo",
 ]

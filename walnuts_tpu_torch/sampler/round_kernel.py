@@ -7,10 +7,13 @@ held a block of 128 chains in VMEM and ran the shared round body on
 ``[128, 128]`` tiles; on the v5e scoped VMEM capped the block there and
 it lost to XLA.  The CUDA kernel (``csrc/round_kernel.cu``) instead
 gives each chain one warp: the D coordinates spread over the lanes, the
-funnel gradient is fused into the leapfrog step, and D-reductions
+target's gradient (the funnel's, the standard normal's or
+Stock-Watson's) is fused into the leapfrog step, and D-reductions
 (kinetic energy, the funnel's sum of squares, U-turn and merge dots)
 are warp shuffles.  Each warp follows its own chain's control flow, so
-no chain waits on another's mask.
+no chain waits on another's mask.  Stock-Watson's gradient is six scans
+over its series; the kernel runs them over blocks of eight indices per
+lane joined by warp scans, with the trial vectors in the bank.
 
 What bounds it on the H100: latency at too few resident warps, then
 state bytes.  A launch reads and writes each chain's state once, about
@@ -222,19 +225,22 @@ class _RoundParams(ctypes.Structure):
     """Mirror of ``struct RoundParams`` in ``csrc/round_kernel.cu``."""
     _fields_ = (
         [(f, ctypes.c_void_p) for f in
-         ("sf", "si", "vx", "slab_q", "slab_v", "samples", "diags")]
+         ("sf", "si", "vx", "slab_q", "slab_v", "samples", "diags", "y")]
         + [(f, ctypes.c_double) for f in
            ("s_lo", "s_2sc", "p0", "lp_c", "lp_f", "thresh", "scale",
             "log_scale", "half_log2pi", "half_k", "half_k_log2pi",
-            "scale_sq", "delta_target")]
+            "scale_sq", "delta_target", "half_inn_log2pi",
+            "half_obs_log2pi", "three_log2pi")]
         + [(f, ctypes.c_int) for f in
            ("C", "D", "S", "dg", "R", "Rd", "T_rows", "min_c", "max_c",
             "proto_d", "stop_mode", "num_iter", "micro_unroll", "nbase",
             "seed", "warmup", "adapt_h", "adapt_delta", "pooled",
-            "warmup_iter", "target", "gen", "precision")])
+            "warmup_iter", "target", "gen", "precision", "sw_T",
+            "sw_proper")])
 
 
-KERNEL_TARGETS = {"funnel": 0, "std_gauss": 1}
+KERNEL_TARGETS = {"funnel": 0, "std_gauss": 1, "stock_watson": 2}
+SW_TMAX = 256  # Stock-Watson series the kernel takes: 8 indices per lane
 
 
 def _gen_id(target):
@@ -243,20 +249,22 @@ def _gen_id(target):
         return 0
     if gen is omega_sumsq:
         return 1
+    if (target.kernel_id == "stock_watson"
+            and getattr(gen, "kernel_summary", None) == "stock_watson"):
+        return 2
     raise NotImplementedError(
-        f"the CUDA round kernel stores the identity or omega_sumsq "
-        f"summary, not {gen!r}; other summaries wait for a kernel of "
-        "their own (ROADMAP queue 2)")
+        f"the CUDA round kernel stores the identity, omega_sumsq or "
+        f"Stock-Watson summary, not {gen!r}; other summaries wait for a "
+        "kernel of their own (ROADMAP queue 2)")
 
 
 def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
     tgt, cfg, wu = spec.target, spec.cfg, spec.warmup
     if tgt.kernel_id not in KERNEL_TARGETS:
         raise NotImplementedError(
-            f"the CUDA round kernel implements the funnel and std_gauss "
-            f"targets, not {tgt.name!r}; other targets wait for the "
-            "autograd path of ROADMAP queue 1 item 2 and a kernel of "
-            "their own (ROADMAP queue 2)")
+            f"the CUDA round kernel implements the funnel, std_gauss and "
+            f"stock_watson targets, not {tgt.name!r}; other targets wait "
+            "for a kernel of their own (ROADMAP queue 2)")
     NF, C = b.sf.shape
     S, D = b.slab_q.shape[1:]
     dg = b.samples.shape[2]
@@ -267,11 +275,21 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
     log_2pi = math.log(2.0 * math.pi)
     k = D - 1
     s_sc = cfg.step_size_rand_scale
+    y_ptr, sw_T, sw_proper = None, 0, 0
+    if tgt.kernel_id == "stock_watson":
+        sw_T, sw_proper = tgt.kernel_args["T"], int(tgt.kernel_args["proper"])
+        if not 3 <= sw_T <= SW_TMAX or 3 * sw_T != D:
+            raise NotImplementedError(
+                f"the CUDA round kernel runs Stock-Watson series of 3 to "
+                f"{SW_TMAX} rows at D = 3T; got T = {sw_T}, D = {D}")
+        y_ptr = tgt.kernel_args["y"](b.vx).data_ptr()
+    n_inn = 3 * sw_T - 4
     return _RoundParams(
-        *(t.data_ptr() for t in b),
+        *(t.data_ptr() for t in b), y_ptr,
         1.0 - s_sc, 2.0 * s_sc, cfg.igr.r2p_prob0, lp_c, lp_f, thresh,
         scale, math.log(scale), 0.5 * log_2pi, 0.5 * k, 0.5 * k * log_2pi,
         scale ** 2, wu.adapt_delta_target if wu else 0.0,
+        0.5 * n_inn * log_2pi, 0.5 * sw_T * log_2pi, 3.0 * log_2pi,
         C, D, S, dg, b.samples.shape[0], b.diags.shape[0],
         2 ** (cfg.m - 1), min_c, max_c, int(proto_d),
         STOP_MODES.index(spec.stop_mode), spec.num_iter, spec.micro_unroll,
@@ -279,7 +297,7 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
         int(bool(wu and wu.adapt_delta)), int(bool(wu and wu.pooled)),
         wu.warmup_iter if wu else 0,
         KERNEL_TARGETS[tgt.kernel_id], _gen_id(tgt),
-        0 if dtype == torch.float64 else 1)
+        0 if dtype == torch.float64 else 1, sw_T, sw_proper)
 
 
 def _check(b: Banks):

@@ -8,9 +8,11 @@ backward pass for the whole batch, as the JAX version's ``vjp``).
 
 ``kernel_id`` names a target that the CUDA round kernel implements
 with its gradient fused into the leapfrog step (``"funnel"``,
-``"std_gauss"``); ``kernel_param`` is that target's one parameter
-(the funnel's ``scale``).  A target without one runs on the plain
-engine only.
+``"std_gauss"``, ``"stock_watson"``); ``kernel_param`` is the funnel's
+one parameter (its ``scale``) and ``kernel_args`` holds the parameters
+of a target that has more (Stock-Watson's series length ``T``, its
+``proper`` flag and the series ``y``).  A target without a
+``kernel_id`` runs on the plain engine only.
 """
 
 from typing import Callable, Optional
@@ -30,7 +32,8 @@ class Target:
         logp_grad: optional analytic batched ``[..., D] ->
             (lp[...], grad[..., D])`` override.
         kernel_id: name of the CUDA round kernel's fused target, if any.
-        kernel_param: that fused target's parameter.
+        kernel_param: the fused funnel's scale.
+        kernel_args: the parameters of a fused target with more than one.
     """
 
     def __init__(
@@ -42,6 +45,7 @@ class Target:
         logp_grad: Optional[Callable] = None,
         kernel_id: Optional[str] = None,
         kernel_param: float = 0.0,
+        kernel_args: Optional[dict] = None,
     ):
         self._logp = logp
         self.dim = int(dim)
@@ -50,6 +54,7 @@ class Target:
         self._logp_grad = logp_grad
         self.kernel_id = kernel_id
         self.kernel_param = float(kernel_param)
+        self.kernel_args = dict(kernel_args or {})
 
     def logp(self, q):
         """Batched log density: ``[..., D] -> [...]``."""
@@ -72,8 +77,16 @@ class Target:
         return self.logp_grad(q)[1]
 
     def hvp(self, q, v):
-        """Hessian-vector product, forward over reverse (``torch.func``)."""
-        return torch.func.jvp(lambda x: self.logp_grad(x)[1], (q,), (v,))[1]
+        """Hessian-vector product, forward over reverse (``torch.func``):
+        the forward derivative of the analytic gradient where there is
+        one, else of the functional gradient of the batch's summed log
+        density (``logp_grad``'s autograd path cannot run inside a
+        ``torch.func`` transform)."""
+        if self._logp_grad is not None:
+            grad = lambda x: self._logp_grad(x)[1]  # noqa: E731
+        else:
+            grad = torch.func.grad(lambda x: self.logp(x).sum())
+        return torch.func.jvp(grad, (q,), (v,))[1]
 
     def hessian(self, q):
         return torch.func.hessian(self._logp)(q)

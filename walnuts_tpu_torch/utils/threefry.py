@@ -190,6 +190,15 @@ def bernoulli(key, p=0.5, shape=(), dtype=torch.float64):
     return uniform(key, shape, dtype) < p
 
 
+def gumbel(key, shape, dtype=torch.float64):
+    """``jax.random.gumbel`` (mode ``"low"``): ``-log(-log(u))`` for
+    ``u`` uniform on ``[tiny, 1)``, ``tiny`` the dtype's smallest
+    normal number."""
+    u = uniform(key, shape, dtype, minval=torch.finfo(dtype).tiny,
+                maxval=1.0)
+    return -torch.log(-torch.log(u))
+
+
 # XLA's erf_inv (chlo legalisation): Giles' single- and double-precision
 # polynomials, evaluated by Horner's rule in the working dtype.
 _ERFINV_F32 = (
