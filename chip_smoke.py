@@ -25,7 +25,17 @@ fuses its gradient: float64 kernel against twin under the example's
 three protocols, then the example's walnuts_d arm at 256 chains with
 its speed, kernel time beside its bound and medians beside the
 committed example's bands; 9c holds the paper-pseudocode mode and the
-Monge integrators on the card against the CPU.
+Monge integrators on the card against the CPU.  Phase 10 starts two
+gloo ranks on the one card (``walnuts_tpu_torch.parallel.run_ranks``,
+with the rank functions below): 10a holds the float64 kernel over the
+ranks against one process, 10b runs the main path at full width over
+the two ranks and requires phase 4's launches, grads, draws and ESS bit
+for bit, 10c holds the native C++ engine (the CPU oracle) against the
+fused engine on the card, and 10d holds what the kernel does not fuse
+against the CPU: a summary of the user's own (``bench.py``'s, as a
+function), which the kernel stages for torch to map, and ``smile``, a
+target without a fused gradient, which ``run_walnuts_fused`` refuses on
+the card and ``run_walnuts_fused_plain`` runs there by name.
 
 Run from the repository root, with no arguments:
 
@@ -109,13 +119,17 @@ def main():
     attrs = phase_build(_build, rk)
     phase_f64(tw, mk, rk, dev)
     max_abs_err = phase_f32(tw, mk, rk, dev)
-    warm, launches = phase_main(tw, mk, rk, dev)
+    warm, launches, main_run = phase_main(tw, mk, rk, dev)
     ms, plain_ms, bound_ms, bound_by = phase_timing(tw, mk, rk, dev, warm)
     scan_state, scan_s_per_it = phase_scan(tw, rk, dev)
     phase_stream(tw, rk, dev, scan_state, scan_s_per_it)
     phase_iso(tw, rk, dev)
     sw = phase_sw(tw, mk, rk, dev)
     phase_modes(tw, rk, dev)
+    phase_ranks_exact(tw, mk, rk, dev)
+    phase_ranks_main(tw, mk, rk, dev, main_run)
+    phase_native(tw, mk, rk, dev)
+    phase_card_route(tw, mk, rk, dev)
     kernel = {"route": "cuda",
               "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
               "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
@@ -339,38 +353,50 @@ def phase_f32(tw, mk, rk, dev):
     return worst
 
 
-def phase_main(tw, mk, rk, dev):
-    """The benchmark's main path through the public entry point."""
-    import torch
-    from walnuts_tpu_torch.diagnostics import ess
+MAIN_C, MAIN_D, MAIN_M, MAIN_WARMUP, MAIN_ITERS = 8192, 101, 8, 700, 300
 
-    C, D, M, WARMUP, ITERS = 8192, 101, 8, 700, 300
+
+def run_main_path(tw, mk, rk, dev, mesh=None):
+    """The benchmark's main path through the public entry point, on this
+    rank's block of the 8192 chains under ``mesh`` (all of them without
+    one): pooled warmup in 2500-round invocations, then the timed
+    ``min_per_chain`` draws.  The counts are reset just before it and
+    read just after.  Returns what phases 4 and 10b report; ``grads``
+    and ``draws`` are this rank's."""
+    import torch
+    from walnuts_tpu_torch.parallel import reduce_int, shard_chains
+
+    C, D, M, WARMUP, ITERS = (MAIN_C, MAIN_D, MAIN_M, MAIN_WARMUP,
+                              MAIN_ITERS)
     g = torch.Generator(device=dev).manual_seed(0)
     q0 = 0.3 * torch.randn(C, D, generator=g, device=dev,
                            dtype=torch.float32)
     h0 = torch.full((C,), 0.3, device=dev)
     d0 = torch.full((C,), 0.3, device=dev)
+    if mesh is not None:
+        q0, h0, d0 = shard_chains((q0, h0, d0), mesh)
     cfg = tw.WalnutsConfig(m=M)
     rk.launches = 0
 
     # warmup: round-capped invocations that resume through mk_state
     wu = tw.WarmupConfig(warmup_iter=WARMUP, pooled=True)
     kw = dict(target=tw.targets.funnel(D), cfg=cfg, num_iter=WARMUP,
-              warmup=wu, ring_rows=8, rounds=2500)
+              warmup=wu, ring_rows=8, rounds=2500, device=dev, mesh=mesh)
     t0 = time.perf_counter()
     st, calls = None, 0
     while True:
         out = mk.run_walnuts_fused(11, q0, h0, d0, mk_state=st, **kw)
         st = out[-1]
         calls += 1
+        done = reduce_int(st.it.min(), mesh, "min")
         if calls % 25 == 0:
-            log(f"  warmup: {int(st.it.min())}/{WARMUP} after "
+            log(f"  warmup: {done}/{WARMUP} after "
                 f"{time.perf_counter() - t0:.1f} s")
-        if int(st.it.min()) >= WARMUP:
+        if done >= WARMUP:
             break
         if time.perf_counter() - t0 > 600:
-            raise AssertionError(f"warmup reached {int(st.it.min())} of "
-                                 f"{WARMUP} transitions in 600 s")
+            raise AssertionError(f"warmup reached {done} of {WARMUP} "
+                                 "transitions in 600 s")
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     warm = st
@@ -380,8 +406,8 @@ def phase_main(tw, mk, rk, dev):
     target = tw.targets.funnel(D, generated=tw.targets.omega_sumsq)
     kw = dict(target=target, cfg=cfg, num_iter=ITERS,
               stop_mode="min_per_chain", diag_rows=8, micro_unroll=4,
-              rounds=12000)
-    t_warm_calls = calls
+              rounds=12000, device=dev, mesh=mesh)
+    warm_calls = calls
     t0 = time.perf_counter()
     st, calls = None, 0
     while True:
@@ -389,19 +415,33 @@ def phase_main(tw, mk, rk, dev):
                                    mk_state=st, **kw)
         st = out[-1]
         calls += 1
-        if int(st.it.min()) >= ITERS:
+        done = reduce_int(st.it.min(), mesh, "min")
+        if done >= ITERS:
             break
         if time.perf_counter() - t0 > 400:
-            raise AssertionError(f"timed phase reached {int(st.it.min())} "
-                                 f"of {ITERS} draws in 400 s")
+            raise AssertionError(f"timed phase reached {done} of {ITERS} "
+                                 "draws in 400 s")
     torch.cuda.synchronize()
     t_timed = time.perf_counter() - t0
-    launches = rk.launches
+    return dict(warm=warm, t_warm=t_warm, warm_calls=warm_calls,
+                warm_launches=warm_launches, t_timed=t_timed, calls=calls,
+                launches=rk.launches,
+                grads=int(st.grad_ct.to(torch.int64).sum()),
+                draws=st.samples, final=st)
+
+
+def phase_main(tw, mk, rk, dev):
+    """Phase 4: the main path in one process."""
+    import torch
+    from walnuts_tpu_torch.diagnostics import ess
+
+    r = run_main_path(tw, mk, rk, dev)
+    C, M, WARMUP, ITERS = MAIN_C, MAIN_M, MAIN_WARMUP, MAIN_ITERS
+    launches, warm = r["launches"], r["warm"]
     if launches == 0:
         raise AssertionError("the main path never launched the kernel")
-
-    grads = int(st.grad_ct.to(torch.int64).sum())
-    draws = st.samples.double()                       # [300, C, 2]
+    grads, t_timed = r["grads"], r["t_timed"]
+    draws = r["draws"].double()                       # [300, C, 2]
     if tuple(draws.shape) != (ITERS, C, 2) or \
             not bool(torch.isfinite(draws).all()):
         raise AssertionError(f"bad draws: shape {tuple(draws.shape)}")
@@ -409,19 +449,21 @@ def phase_main(tw, mk, rk, dev):
     min_ess_s = float(ess_vals.min()) / t_timed
     sd_err = abs(float(draws[..., 0].std()) - 3.0)
     log(f"phase 4 main path: funnel(101) C={C} m={M} f32: warmup "
-        f"{WARMUP} pooled in {t_warm:.2f} s over {t_warm_calls} calls of "
-        f"2500 rounds (adapted H median "
+        f"{WARMUP} pooled in {r['t_warm']:.2f} s over {r['warm_calls']} "
+        f"calls of 2500 rounds (adapted H median "
         f"{float(warm.h_cur.median()):.4f}, delta median "
         f"{float(warm.delta_cur.median()):.4f}); timed {ITERS} draws in "
-        f"{t_timed:.2f} s over {calls} calls of 12000 rounds: {grads} grad "
-        f"evals = {grads / t_timed:.1f} grad-evals/s, ESS (omega, sum x^2) = "
-        f"{[round(float(e), 1) for e in ess_vals]}, min-ESS/s "
+        f"{t_timed:.2f} s over {r['calls']} calls of 12000 rounds: {grads} "
+        f"grad evals = {grads / t_timed:.1f} grad-evals/s, ESS (omega, sum "
+        f"x^2) = {[round(float(e), 1) for e in ess_vals]}, min-ESS/s "
         f"{min_ess_s:.2f}, |sd(omega) - 3| = {sd_err:.4f}, kernel launches "
-        f"{launches} ({warm_launches} warmup, {launches - warm_launches} "
-        f"timed)")
+        f"{launches} ({r['warm_launches']} warmup, "
+        f"{launches - r['warm_launches']} timed); on {CARD}")
     if not sd_err < 0.3:
         raise AssertionError(f"|sd(omega) - 3| = {sd_err:.4f} >= 0.3")
-    return warm, launches
+    return warm, launches, dict(grads=grads, ess=ess_vals,
+                                draws=r["draws"], launches=launches,
+                                t_timed=t_timed, t_warm=r["t_warm"])
 
 
 def _bound(rk, b0, b1, periods, warmup, flops_per_coord=FLOPS_PER_COORD):
@@ -1206,6 +1248,342 @@ def phase_modes(tw, rk, dev):
         f"monge_int_adapt (t = 0.5, rtol/atol 1e-10): max abs diff "
         f"{max(errs):.3e} (rtol {EXACT['rtol']:g}, atol {EXACT['atol']:g}); "
         f"round-kernel launches over 9c {rk.launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: chains split over ranks, the native oracle, what the kernel
+# does not fuse
+# ---------------------------------------------------------------------------
+
+# Both ranks of 10a and 10b share the one card, so they join over gloo
+# (parallel.rank_layout: NCCL refuses two ranks on one GPU).
+RANKS_ON = "cuda:0"
+
+
+def _rank_device():
+    """The card a rank of phase 10 runs on (``run_ranks`` made it the
+    rank's current card)."""
+    import torch
+
+    return torch.device(RANKS_ON)
+
+
+def _exact_case(tw, dev):
+    """10a's float64 invocation: funnel(11), 64 chains, m=4, 160 rounds
+    of pooled warmup in ``per_chain`` mode."""
+    import torch
+
+    C, D = 64, 11
+    g = torch.Generator(device="cpu").manual_seed(1234)
+    q0 = (0.3 * torch.randn(C, D, generator=g, dtype=torch.float64)).to(dev)
+    h = torch.full((C,), 0.4, dtype=torch.float64, device=dev)
+    dl = torch.full((C,), 0.15, dtype=torch.float64, device=dev)
+    kw = dict(target=tw.targets.funnel(D), cfg=tw.WalnutsConfig(m=4),
+              num_iter=20, stop_mode="per_chain", rounds=160, diag_rows=8,
+              warmup=tw.WarmupConfig(warmup_iter=20, pooled=True),
+              device=dev)
+    return q0, h, dl, kw
+
+
+def rank_fused_exact():
+    """10a, on each rank: the rank's block of the float64 invocation
+    through the kernel; returns its banks on the host and its launches."""
+    import torch
+    import walnuts_tpu_torch as tw
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.sampler import megakernel as mk
+    from walnuts_tpu_torch.sampler import round_kernel as rk
+
+    dev = _rank_device()
+    mesh = parallel.make_mesh()
+    q0, h, dl, kw = _exact_case(tw, dev)
+    q0, h, dl = parallel.shard_chains((q0, h, dl), mesh)
+    rk.launches = 0
+    st = mk.run_walnuts_fused(2718, q0, h, dl, mesh=mesh, **kw)[-1]
+    torch.cuda.synchronize()
+    return dict(banks=[t.cpu() for t in rk.pack(st)], launches=rk.launches)
+
+
+# the chain axis of each bank (sf, si, vx, slab_q, slab_v, samples, diags)
+BANK_CHAIN_AXES = (1, 1, 0, 0, 0, 1, 1)
+
+
+def phase_ranks_exact(tw, mk, rk, dev):
+    """10a: the fused engine over two gloo ranks on the card, exact:
+    the ranks' banks, joined in rank order, against one process's."""
+    import torch
+    from walnuts_tpu_torch.parallel import run_ranks
+
+    q0, h, dl, kw = _exact_case(tw, dev)
+    rk.launches = 0
+    one = rk.pack(mk.run_walnuts_fused(2718, q0, h, dl, **kw)[-1])
+    torch.cuda.synchronize()
+    one_launches = rk.launches
+    t0 = time.perf_counter()
+    outs = run_ranks(rank_fused_exact, 2, timeout=300, device=RANKS_ON)
+    wall = time.perf_counter() - t0
+    joined = rk.Banks(*(torch.cat([o["banks"][i] for o in outs], dim=ax)
+                        .to(dev) for i, ax in enumerate(BANK_CHAIN_AXES)))
+    err = _banks_compare(joined, one, rtol=1e-9, atol=1e-12)
+    bitwise = all(torch.equal(a, b) for a, b in zip(joined, one))
+    per_rank = [o["launches"] for o in outs]
+    if per_rank != [one_launches] * 2:
+        raise AssertionError(f"10a: launches per rank {per_rank} against "
+                             f"{one_launches} in one process")
+    it = rk.I_FIELDS.index("it")
+    log(f"phase 10a fused engine over 2 gloo ranks on the card, f64 "
+        f"funnel(11) C=64 (32 per rank) m=4, 160 rounds, pooled warmup, "
+        f"kernel: joined banks == one process's: integer banks equal, max "
+        f"abs float diff {err:.3e} (rtol 1e-9, atol 1e-12), bitwise "
+        f"{bitwise}; launches per rank {per_rank} (one process "
+        f"{one_launches}); draws {int(one.si[it].sum())}; {wall:.1f} s with "
+        f"the ranks' start")
+
+
+def rank_main_path():
+    """10b, on each rank: the main path on the rank's 4096 chains, then
+    the collectives' cost per launch at this shape."""
+    import torch
+    import walnuts_tpu_torch as tw
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.sampler import megakernel as mk
+    from walnuts_tpu_torch.sampler import round_kernel as rk
+
+    dev = _rank_device()
+    mesh = parallel.make_mesh()
+    r = run_main_path(tw, mk, rk, dev, mesh)
+
+    # a warmup launch's collectives (the stop test's all-reduce and the
+    # consensus' all-gather of three rows), against the one-process stop
+    # test's host sync alone
+    st, n = r["final"], 200
+    rows = torch.stack([st.it.to(st.h_cur.dtype), st.h_cur, st.delta_cur])
+    timings = []
+    for m in (mesh, None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            parallel.reduce_int((st.it < MAIN_ITERS).any(), m, "max")
+            if m is not None:
+                parallel.gather_rows(rows, m, dim=1)
+        torch.cuda.synchronize()
+        timings.append((time.perf_counter() - t0) / n * 1e3)
+    return dict(launches=r["launches"], warm_launches=r["warm_launches"],
+                grads=r["grads"],
+                draws=r["draws"].cpu(), t_warm=r["t_warm"],
+                t_timed=r["t_timed"], coll_ms=timings[0], sync_ms=timings[1],
+                h=float(r["warm"].h_cur.median()),
+                delta=float(r["warm"].delta_cur.median()))
+
+
+def phase_ranks_main(tw, mk, rk, dev, main_run):
+    """10b: the main path at full width over two gloo ranks on the one
+    card (4096 chains each): every rank's launches, the summed grads,
+    the joined draws and their ESS equal phase 4's bit for bit."""
+    import torch
+    from walnuts_tpu_torch.diagnostics import ess
+    from walnuts_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    outs = run_ranks(rank_main_path, 2, timeout=600, device=RANKS_ON)
+    wall = time.perf_counter() - t0
+    draws = torch.cat([o["draws"] for o in outs], dim=1).to(dev)
+    grads = sum(o["grads"] for o in outs)
+    ess_vals = ess(draws.double())
+    launches = [o["launches"] for o in outs]
+    t_timed = max(o["t_timed"] for o in outs)
+    t_warm = max(o["t_warm"] for o in outs)
+    sd_err = abs(float(draws[..., 0].double().std()) - 3.0)
+    log(f"phase 10b main path over 2 gloo ranks on the card: funnel(101) "
+        f"C={MAIN_C} ({MAIN_C // 2} per rank) m={MAIN_M} f32, "
+        f"{MAIN_WARMUP} pooled warmup + {MAIN_ITERS} draws: warmup "
+        f"{t_warm:.2f} s (phase 4 "
+        f"{main_run['t_warm']:.2f} s), timed {t_timed:.2f} s (phase 4 "
+        f"{main_run['t_timed']:.2f} s): {grads} grad evals = "
+        f"{grads / t_timed:.1f} grad-evals/s (phase 4 "
+        f"{main_run['grads'] / main_run['t_timed']:.1f}), ESS "
+        f"{[round(float(e), 1) for e in ess_vals]}, min-ESS/s "
+        f"{float(ess_vals.min()) / t_timed:.2f} (phase 4 "
+        f"{float(main_run['ess'].min()) / main_run['t_timed']:.2f}), "
+        f"|sd(omega) - 3| = {sd_err:.4f}; launches per rank {launches} "
+        f"(phase 4 {main_run['launches']}); adapted H median "
+        f"{outs[0]['h']:.4f}, delta median {outs[0]['delta']:.4f}; "
+        f"{wall:.1f} s with the ranks' start; on {CARD}")
+    log(f"phase 10b collectives per warmup launch (stop-test all-reduce + "
+        f"consensus all-gather of 3 x {MAIN_C // 2}, gloo through the "
+        f"host, 200 "
+        f"times): {[round(o['coll_ms'], 4) for o in outs]} ms per rank, "
+        f"against {[round(o['sync_ms'], 4) for o in outs]} ms for the "
+        f"one-process stop test's sync; on {CARD}")
+    if launches != [main_run["launches"]] * 2:
+        raise AssertionError(f"10b: launches per rank {launches}, phase 4 "
+                             f"{main_run['launches']}")
+    if grads != main_run["grads"]:
+        raise AssertionError(f"10b: {grads} grads, phase 4 "
+                             f"{main_run['grads']}")
+    if not torch.equal(draws, main_run["draws"]):
+        raise AssertionError("10b: the joined draws differ from phase 4's")
+    if not torch.equal(ess_vals, main_run["ess"]):
+        raise AssertionError(f"10b: ESS {ess_vals.tolist()}, phase 4 "
+                             f"{main_run['ess'].tolist()}")
+    if not sd_err < 0.3:
+        raise AssertionError(f"10b: |sd(omega) - 3| = {sd_err:.4f} >= 0.3")
+
+
+# 10c's card run: funnel(11) chains and draws per chain (the first 100
+# are dropped); test_native.py's JAX side runs 64 chains x 500.
+NATIVE_CHAINS, NATIVE_ITERS = 1024, 500
+
+
+def phase_native(tw, mk, rk, dev):
+    """10c: the native C++ engine (the CPU oracle, built from
+    ``native/walnuts_engine.cpp`` by ``walnuts_tpu_torch.native``)
+    against the fused engine on the card, with the gates of
+    ``tests/test_native.py``'s engine-agreement test on omega's mean,
+    sd, left-tail mass and quartiles."""
+    import numpy as np
+    import torch
+    from walnuts_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w_n = np.concatenate([
+        native.run("funnel", 11, np.zeros(11), 20000, h0=0.3, delta=0.3,
+                   m=9, seed=s)[0][2000:, 0] for s in (3, 4, 5)])
+    t_native = time.perf_counter() - t0
+
+    C, N = NATIVE_CHAINS, NATIVE_ITERS
+    g = torch.Generator(device=dev).manual_seed(3)
+    q0 = 0.1 * torch.randn(C, 11, generator=g, device=dev,
+                           dtype=torch.float64)
+    rk.launches = 0
+    t0 = time.perf_counter()
+    out = mk.run_walnuts_fused(
+        41, q0, torch.full((C,), 0.3, dtype=torch.float64, device=dev),
+        torch.full((C,), 0.3, dtype=torch.float64, device=dev),
+        target=tw.targets.funnel(11), cfg=tw.WalnutsConfig(m=9),
+        num_iter=N, device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    if rk.launches == 0:
+        raise AssertionError("10c: the fused engine made no kernel launch")
+    w_j = out[0][100:, :, 0].cpu().numpy().ravel()
+    stats = {
+        "mean": (w_n.mean(), w_j.mean(), 0.45),
+        "sd": (w_n.std(), w_j.std(), 0.3),
+        "P(omega < -3)": ((w_n < -3).mean(), (w_j < -3).mean(), 0.05),
+    }
+    for p in (0.25, 0.5, 0.75):
+        stats[f"q{p:g}"] = (np.quantile(w_n, p), np.quantile(w_j, p), 0.5)
+    text = "; ".join(f"{k} {a:.4f} vs {b:.4f} (gate {t})"
+                     for k, (a, b, t) in stats.items())
+    log(f"phase 10c native oracle vs the card: native funnel(11) m=9, 3 "
+        f"chains x 18000 draws after 2000 ({path.name} built in "
+        f"{t_build:.1f} s, sampled in {t_native:.1f} s) vs the fused "
+        f"engine f64 funnel(11) C={C} m=9 h=delta=0.3 fixed, {N - 100} "
+        f"draws after 100 ({rk.launches} kernel launches, {t_card:.1f} s): "
+        f"{text}")
+    bad = [k for k, (a, b, t) in stats.items() if not abs(a - b) < t]
+    if bad:
+        raise AssertionError(f"10c: native and card disagree on {bad}")
+
+
+def _bench_summary(q):
+    """``bench.py``'s (omega, sum x^2) summary written as a function of
+    its own: not ``omega_sumsq``, so the kernel does not store it."""
+    import torch
+
+    return torch.stack([q[..., 0], torch.sum(q[..., 1:] ** 2, dim=-1)], -1)
+
+
+def phase_card_route(tw, mk, rk, dev):
+    """10d: what the kernel does not fuse, on the card.  A summary the
+    kernel does not store (``bench.py``'s, as a function of its own)
+    runs through the kernel, which stages positions for torch to map:
+    equal to the CPU run under EXACT in float64, and at the main path's
+    timed shape against ``omega_sumsq`` stored in the kernel.  A target
+    without a fused gradient (``smile``) raises in ``run_walnuts_fused``
+    before any launch, and ``run_walnuts_fused_plain`` runs it on the
+    card, equal to the CPU run under EXACT."""
+    import torch
+
+    C = 64
+    for name, target, run in (
+            ("funnel(7) with bench.py's summary", tw.targets.funnel(
+                7, generated=_bench_summary), mk.run_walnuts_fused),
+            ("smile through run_walnuts_fused_plain", tw.targets.smile(),
+             mk.run_walnuts_fused_plain)):
+        g = torch.Generator(device="cpu").manual_seed(9)
+        q0 = 0.3 * torch.randn(C, target.dim, generator=g,
+                               dtype=torch.float64)
+        kw = dict(target=target, cfg=tw.WalnutsConfig(m=5), num_iter=12,
+                  stop_mode="per_chain", rounds=160, diag_rows=4,
+                  micro_unroll=2)
+        h = torch.full((C,), 0.3, dtype=torch.float64)
+        dl = torch.full((C,), 0.2, dtype=torch.float64)
+        rk.launches = 0
+        if run is mk.run_walnuts_fused_plain:
+            try:
+                mk.run_walnuts_fused(31, q0, h, dl, device=dev, **kw)
+            except NotImplementedError as e:
+                if "run_walnuts_fused_plain" not in str(e):
+                    raise
+            else:
+                raise AssertionError("10d: run_walnuts_fused ran smile")
+            if rk.launches:
+                raise AssertionError("10d: smile launched the kernel")
+        t0 = time.perf_counter()
+        card = run(31, q0, h, dl, device=dev, **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches = rk.launches
+        if (launches > 0) != (run is mk.run_walnuts_fused):
+            raise AssertionError(f"10d {name}: {launches} kernel launches")
+        cpu = mk.run_walnuts_fused(31, q0, h, dl, device="cpu", **kw)
+        a = rk.Banks(*(t.cpu() for t in rk.pack(card[-1])))
+        err = _banks_compare(a, rk.pack(cpu[-1]), rtol=1e-9, atol=1e-12)
+        if card[4] != cpu[4]:
+            raise AssertionError(f"10d {name}: grads {card[4]} vs {cpu[4]}")
+        log(f"phase 10d {name}, f64 C={C} m=5, 160 rounds: card == CPU, "
+            f"integer banks equal, max abs float diff {err:.3e} (rtol "
+            f"1e-9, atol 1e-12); kernel launches {launches}; draws "
+            f"{int(card[3].sum())}, {t_card:.2f} s on the card")
+
+    # the main path's timed shape, 1600 rounds from the same start: the
+    # summary as a function of its own against omega_sumsq in the kernel
+    g = torch.Generator(device=dev).manual_seed(5)
+    q0 = 0.3 * torch.randn(MAIN_C, MAIN_D, generator=g, device=dev)
+    h = torch.full((MAIN_C,), 0.3, device=dev)
+    kw = dict(cfg=tw.WalnutsConfig(m=MAIN_M), num_iter=MAIN_ITERS,
+              stop_mode="min_per_chain", diag_rows=8, micro_unroll=4,
+              rounds=1600, device=dev)
+    outs, ms = {}, {}
+    for name in ("omega_sumsq", "own", "own", "omega_sumsq"):
+        gen = tw.targets.omega_sumsq if name == "omega_sumsq" else \
+            _bench_summary
+        rk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mk.run_walnuts_fused(
+            13, q0, h, h, target=tw.targets.funnel(MAIN_D, generated=gen),
+            **kw)
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3 / rk.launches
+        ms[name] = min(ms.get(name, t), t)
+        outs[name] = out
+    a, b = outs["own"], outs["omega_sumsq"]
+    if not (torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+            and a[4] == b[4]):
+        raise AssertionError("10d: the summary changed the chains' path")
+    s_err = float((a[0] - b[0]).abs().max())
+    torch.testing.assert_close(a[0], b[0], rtol=1e-5, atol=1e-5)
+    log(f"phase 10d main path's timed shape (funnel({MAIN_D}) C={MAIN_C} "
+        f"m={MAIN_M} f32, 1600 rounds): bench.py's summary mapped in torch "
+        f"{ms['own']:.4f} ms per launch against omega_sumsq in the kernel "
+        f"{ms['omega_sumsq']:.4f} ms (wall, best of 2); positions, counts "
+        f"and grads equal, draws within {s_err:.3e}; on {CARD}")
 
 
 def _counts(x):

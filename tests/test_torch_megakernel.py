@@ -14,7 +14,7 @@ import walnuts_tpu_torch as tw
 from walnuts_tpu.sampler.megakernel import run_walnuts_fused as jax_fused
 from walnuts_tpu_torch.sampler.megakernel import (MState, mstate_from_numpy,
                                                   mstate_to_numpy)
-from walnuts_tpu_torch.utils.parity import ADAPTIVE, EXACT
+from walnuts_tpu_torch.utils.parity import ADAPTIVE, EXACT, assert_parity
 
 torch.set_num_threads(2)
 
@@ -206,3 +206,40 @@ def test_invalid_arguments_raise():
             1, torch.zeros(2, 3, dtype=torch.float64), 0.1, 0.1,
             target=tw.targets.std_gauss(3), num_iter=1,
             cfg=tw.WalnutsConfig(m=4), stop_mode="forever", device="cpu")
+
+
+def _own_summary_jax(q):
+    return jnp.stack([q[..., 0], jnp.sum(q[..., 1:] ** 2, axis=-1)], -1)
+
+
+def _own_summary(q):
+    """``bench.py``'s (omega, sum x^2) as a function of its own (the
+    kernel stores ``omega_sumsq`` only; this one it stages for torch)."""
+    return torch.stack([q[..., 0], torch.sum(q[..., 1:] ** 2, dim=-1)], -1)
+
+
+@pytest.mark.parametrize("case", ["smile", "funnel_own_summary"])
+def test_unfused_target_and_own_summary_match_jax(case):
+    """What the CUDA kernel does not fuse, in the plain engine on the CPU
+    against JAX's engine: ``smile`` (autograd gradient) and the funnel
+    with a summary of the user's own; 160 rounds, EXACT."""
+    if case == "smile":
+        jt, pt = wt.targets.smile(), tw.targets.smile()
+    else:
+        jt = wt.targets.funnel(D, generated=_own_summary_jax)
+        pt = tw.targets.funnel(D, generated=_own_summary)
+    q0 = Q0[:, :jt.dim]
+    kw = dict(num_iter=12, stop_mode="per_chain", diag_rows=4,
+              micro_unroll=2, rounds=160)
+    want = jax_fused(KEY, jnp.asarray(q0), jnp.full((C,), 0.3),
+                     jnp.full((C,), 0.2), target=jt,
+                     cfg=wt.WalnutsConfig(m=5), rng="hash", **kw)
+    got = tw.run_walnuts_fused(
+        SEED, torch.from_numpy(q0), torch.full((C,), 0.3, dtype=torch.float64),
+        torch.full((C,), 0.2, dtype=torch.float64), target=pt,
+        cfg=tw.WalnutsConfig(m=5), device="cpu", **kw)
+    _assert_states_match(want[-1], got[-1])
+    assert got[0].shape == (12, C, 2) and int(got[3].sum()) > C
+    assert got[4] == int(np.asarray(want[-1].grad_ct).sum())
+    for a, b in zip(want[:4], got[:4]):
+        assert_parity(np.asarray(a), b.numpy(), EXACT)

@@ -184,6 +184,71 @@ def test_kernel_dispatch_rejects_what_it_does_not_implement():
                                  .transpose(1, 2)))
 
 
+def _lambda_summary(q):
+    """``bench.py``'s (omega, sum x^2) summary written as a new
+    function: the kernel matches ``omega_sumsq`` by identity only."""
+    return torch.stack([q[..., 0], torch.sum(q[..., 1:] ** 2, dim=-1)], -1)
+
+
+def test_check_card_decides_the_route_from_the_spec():
+    spec = rk.RoundSpec(target=tw.targets.funnel(D),
+                        cfg=tw.WalnutsConfig(m=M), warmup=None,
+                        stop_mode="per_chain", num_iter=10, micro_unroll=1,
+                        seed=1)
+    for target in (tw.targets.funnel(D), tw.targets.std_gauss(D),
+                   tw.targets.funnel(D, generated=tw.targets.omega_sumsq),
+                   tw.targets.stock_watson()):
+        assert rk.check_card(spec._replace(target=target))
+    assert not rk.check_card(spec._replace(
+        target=tw.targets.funnel(D, generated=_lambda_summary)))
+    long_sw = tw.targets.stock_watson()
+    long_sw.kernel_args["T"] = rk.SW_TMAX + 1
+    for target, what in ((tw.targets.smile(), "'smile'"),
+                         (tw.Target(tw.targets.funnel(D)._logp, D), "target"),
+                         (long_sw, "T = 257")):
+        with pytest.raises(NotImplementedError,
+                           match=f"(?s){what}.*run_walnuts_fused_plain"):
+            rk.check_card(spec._replace(target=target))
+
+
+@pytest.mark.parametrize("stop_mode,ring_rows", [
+    ("per_chain", None), ("total", 3), ("total", 1), ("min_per_chain", None)])
+def test_deferred_summary_writes_the_rows_the_flush_would(stop_mode,
+                                                         ring_rows):
+    """The kernel's side of a summary it does not store, with the plain
+    twin standing in for the kernel: positions staged in two-row rings
+    and mapped after each period equal the plain run that stores the
+    summary itself (rings that wrap under ``total`` included)."""
+    target = tw.targets.funnel(D, generated=_lambda_summary)
+    kw = dict(target=target, cfg=tw.WalnutsConfig(m=M), num_iter=6,
+              stop_mode=stop_mode, ring_rows=ring_rows, diag_rows=4,
+              micro_unroll=2)
+    want = mk.run_walnuts_fused(SEED, Q0, 0.4, 0.15, device="cpu", **kw)
+    spec = rk.RoundSpec(target=target, cfg=kw["cfg"], warmup=None,
+                        stop_mode=stop_mode, num_iter=6, micro_unroll=2,
+                        seed=SEED)
+    st = mk.init_state(torch.from_numpy(Q0), 0.4, 0.15, target=target,
+                       cfg=kw["cfg"], warmup=None, num_iter=6,
+                       ring_rows=ring_rows, diag_rows=4)
+    ring = st.samples.clone()
+    ident, st = rk.defer_summary(st, target)
+    assert not rk.check_card(spec) and rk.check_card(
+        spec._replace(target=ident))
+    banks = rk.pack(st)
+    view = rk.unpack(banks, 0)
+    n = 0
+    while (int(view.it.sum()) < C * 6 if stop_mode == "total"
+           else bool((view.it < 6).any())):
+        it0 = view.it.clone()
+        rk.run_rounds_plain(banks, n, spec._replace(target=ident))
+        rk.summarize(ring, view.samples, it0, view.it, target, stop_mode, 6)
+        n += 16
+    assert torch.equal(view.it, want[3])
+    assert int(want[3].sum()) > 0
+    torch.testing.assert_close(ring, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(banks.diags, want[1], rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("values", [
     [3.0, 1.0, float("nan"), 2.0],
     [4.0, float("nan"), 1.0, 2.0, 3.0],

@@ -16,7 +16,7 @@ import torch
 import walnuts_tpu_torch as tw
 from walnuts_tpu_torch.sampler import megakernel as mk
 from walnuts_tpu_torch.sampler import round_kernel as rk
-from walnuts_tpu_torch.utils.parity import ADAPTIVE
+from walnuts_tpu_torch.utils.parity import ADAPTIVE, EXACT
 
 
 @pytest.fixture
@@ -164,3 +164,54 @@ def test_main_path_instantiation_keeps_registers_for_24_warps(cuda_device):
     assert a["dpl"] == 4 and a["regs"] <= 80 and a["local_bytes"] == 0
     assert a["warps_per_sm"] >= 24
     assert rk.kernel_attributes(torch.float64, "std_gauss", 200)["dpl"] == 0
+
+
+def _lambda_summary(q):
+    """``bench.py``'s (omega, sum x^2) as a new function (the kernel
+    matches ``omega_sumsq`` by identity only)."""
+    return torch.stack([q[..., 0], torch.sum(q[..., 1:] ** 2, dim=-1)], -1)
+
+
+def _run_pair(run, target, cuda_device):
+    """``run`` on the card and the plain engine on the CPU, from the same
+    24 chains."""
+    g = torch.Generator().manual_seed(9)
+    q0 = 0.3 * torch.randn(24, target.dim, generator=g, dtype=torch.float64)
+    kw = dict(target=target, cfg=tw.WalnutsConfig(m=4), num_iter=10,
+              stop_mode="per_chain", rounds=96, diag_rows=4,
+              micro_unroll=2)
+    h, dl = torch.full((24,), 0.3, dtype=torch.float64), \
+        torch.full((24,), 0.2, dtype=torch.float64)
+    out = run(31, q0, h, dl, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    ref = mk.run_walnuts_fused(31, q0, h, dl, device="cpu", **kw)
+    torch.testing.assert_close(out[3].cpu(), ref[3], rtol=0, atol=0)
+    assert out[4] == ref[4] and int(ref[3].sum()) > 0
+    for a, b in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(a.cpu(), b, equal_nan=True, **EXACT)
+
+
+@pytest.mark.cuda
+def test_summary_the_kernel_does_not_store_runs_in_the_kernel(cuda_device):
+    """A summary other than the kernel's three: the kernel stages the
+    positions and torch maps the summary; equal to the CPU run."""
+    before = rk.launches
+    _run_pair(mk.run_walnuts_fused,
+              tw.targets.funnel(7, generated=_lambda_summary), cuda_device)
+    assert rk.launches > before
+
+
+@pytest.mark.cuda
+def test_target_without_a_fused_gradient_raises_and_runs_plain_by_name(
+        cuda_device):
+    """``run_walnuts_fused`` raises on the card for a target the kernel
+    lacks, before any launch; ``run_walnuts_fused_plain`` runs it there
+    and equals the CPU run."""
+    before = rk.launches
+    with pytest.raises(NotImplementedError, match="run_walnuts_fused_plain"):
+        mk.run_walnuts_fused(1, torch.zeros(4, 2), 0.3, 0.2,
+                             target=tw.targets.smile(),
+                             cfg=tw.WalnutsConfig(m=4), num_iter=2,
+                             device=cuda_device)
+    _run_pair(mk.run_walnuts_fused_plain, tw.targets.smile(), cuda_device)
+    assert rk.launches == before

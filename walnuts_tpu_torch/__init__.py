@@ -19,13 +19,19 @@ mode (``sampler.walnuts_pseudo``) and the Monge-metric integrators
 (``ops.monge``).  The targets include Stock-Watson
 (``targets.stock_watson``), whose gradient the round kernel fuses.
 
+Chains split over ``torch.distributed`` ranks through :mod:`.parallel`
+(``mesh=`` on ``run_walnuts`` and ``run_walnuts_fused``); :mod:`.native`
+loads the native C++ engine, the CPU oracle; :mod:`.entry` holds the
+counterparts of ``__graft_entry__.py``'s ``entry`` and
+``dryrun_multichip``.
+
 Every entry runs on the card unless the caller passes ``device="cpu"``
 (the fused engine's CPU path is the kernel's plain torch twin); without
 a card the default raises.  ``walnuts_transition``, the step functions
 and the ops run on their inputs' device.  dtype comes from ``q0``.
 """
 
-from . import diagnostics, ops, sampler, targets, utils
+from . import diagnostics, entry, native, ops, parallel, sampler, targets, utils
 from .ops import IntegratorConfig, get_integrator
 from .sampler import (SamplerState, WalnutsConfig, WarmupConfig, run_walnuts,
                       run_walnuts_fused, walnuts_transition)
@@ -37,6 +43,9 @@ __all__ = [
     "sampler",
     "utils",
     "diagnostics",
+    "parallel",
+    "native",
+    "entry",
     "Target",
     "IntegratorConfig",
     "get_integrator",

@@ -8,6 +8,8 @@ positive-sequence truncation, cross-chain variance pooling; ESS per
 
 import torch
 
+from ..parallel.mesh import gather_rows
+
 
 def _autocov(x):
     """Per-chain biased autocovariance of time-major ``[N, C]`` draws."""
@@ -83,3 +85,12 @@ def split_rhat(draws):
     n = draws.shape[0] // 2
     split = torch.cat([draws[:n], draws[n:2 * n]], dim=1)
     return rhat(split)
+
+
+def gather_chains(draws, mesh):
+    """All-gather a rank's ``[N, C_local, ...]`` draws along the chain
+    axis in rank order: every rank gets the whole ``[N, C, ...]`` batch,
+    so :func:`ess`, :func:`rhat` and :func:`split_rhat` of the result
+    equal the single-process values (``draws`` itself without a mesh
+    that splits the chains)."""
+    return gather_rows(draws, mesh, dim=1)

@@ -33,12 +33,14 @@ def uturn(q_earlier, v_earlier, q_later, v_later, inv_mass=None):
             | (torch.sum(v_earlier * d, dim=-1) < 0.0))
 
 
-def refresh_momentum(key, shape, inv_mass=None, dtype=torch.float32):
+def refresh_momentum(key, shape, inv_mass=None, dtype=torch.float32,
+                     rows=None):
     """Draw ``v ~ N(0, M)`` from the threefry key ``key``
     (``utils.threefry``), on the key's device: JAX's
     ``jax.random.normal(key, shape, dtype)`` with ``inv_mass=None``,
-    otherwise ``v = M^{1/2} z``."""
-    z = threefry.normal(key, shape, dtype)
+    otherwise ``v = M^{1/2} z``.  ``rows=(r0, r1)`` draws rows ``r0 ..
+    r1`` of ``shape``'s leading (chain) axis alone."""
+    z = threefry.normal(key, shape, dtype, rows)
     if inv_mass is None:
         return z
     return z * inv_mass ** -0.5

@@ -10,7 +10,11 @@ the masked warmup adaptation of the JAX version (``WALNUTS.py:701-712``):
   estimator, and ``H = delta^{1/3} * exp(quantile)``.
 
 Each chain runs its own adaptation, or with ``pooled=True`` every chain
-takes the batch median of the statistics.  JAX's ``lax.scan`` becomes a
+takes the batch median of the statistics.  With the chains split over
+the ranks of a mesh (``mesh=``), each rank draws its own rows of the
+whole batch's draws and the median is taken over the statistics of
+every rank, all-gathered in rank order, so rank r's results are its
+rows of the single-process run.  JAX's ``lax.scan`` becomes a
 Python loop.  The iteration counter ``iter_n`` is a host int, so the
 warmup test costs no device sync; a checkpoint stores it as an int32
 array, as JAX's does.
@@ -21,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import chain_block, gather_rows, split
 from ..utils import threefry
 from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
 from ..utils.p2 import P2State, p2_init, p2_quantile
@@ -100,15 +105,20 @@ def init_state(target, q0, h0=0.2, delta0=0.05,
 
 
 def sampler_step(key, state: SamplerState, *, target, cfg: WalnutsConfig,
-                 warmup: WarmupConfig, inv_mass=None):
-    """One MCMC iteration plus the masked warmup adaptation."""
+                 warmup: WarmupConfig, inv_mass=None, mesh=None):
+    """One MCMC iteration plus the masked warmup adaptation; ``mesh`` as
+    in :func:`run_walnuts`."""
     it = state.iter_n + 1  # 1-based, like the reference loop
     in_warmup = it <= warmup.warmup_iter
+    block = chain_block(mesh, state.q.shape[0]) if split(mesh) else None
+
+    def median(x):  # the batch median, over every rank's chains
+        return _median(gather_rows(x, mesh))
 
     res = walnuts_transition(
         key, state.q, state.lp, state.g, state.h, state.delta, state.p2,
         in_warmup and warmup.adapt_h,
-        target=target, cfg=cfg, inv_mass=inv_mass)
+        target=target, cfg=cfg, inv_mass=inv_mass, chain_block=block)
 
     delta = state.delta
     err_facs = state.err_facs
@@ -121,14 +131,14 @@ def sampler_step(key, state: SamplerState, *, target, cfg: WalnutsConfig,
                                     warmup.adapt_delta_quantile)
             if warmup.pooled:
                 # consensus: every chain adopts the batch-median quantile
-                quant = _median(quant).expand(quant.shape)
+                quant = median(quant).expand(quant.shape)
             delta = warmup.adapt_delta_target / quant
 
     h = state.h
     if warmup.adapt_h and in_warmup:
         log_c = p2_quantile(res.p2)
         if warmup.pooled:
-            log_c = _median(log_c).expand(log_c.shape)
+            log_c = median(log_c).expand(log_c.shape)
         h_new = delta ** (1.0 / 3.0) * torch.exp(log_c)
         h = torch.where(res.p2.npush > 10, h_new, h)
 
@@ -142,7 +152,8 @@ def run_walnuts(seed, q0=None, *, target, cfg: WalnutsConfig = WalnutsConfig(),
                 warmup: WarmupConfig = WarmupConfig(), num_iter: int = 2000,
                 h0: float = 0.2, delta0: float = 0.05, inv_mass=None,
                 collect_orbit_stats: bool = False,
-                resume_state: SamplerState = None, device=DEFAULT_DEVICE):
+                resume_state: SamplerState = None, device=DEFAULT_DEVICE,
+                mesh=None):
     """Run ``num_iter`` WALNUTS iterations over a ``[C, D]`` chain batch
     (``wt.run_walnuts(jax.random.PRNGKey(seed), q0, ...)``).
 
@@ -162,7 +173,14 @@ def run_walnuts(seed, q0=None, *, target, cfg: WalnutsConfig = WalnutsConfig(),
     ``delta0`` are ignored and the iteration counter carries on, while
     the per-iteration keys are ``fold_in(key, i)`` for ``i = 1 ..
     num_iter`` on every call, as in the JAX version.
+
+    ``mesh`` (:func:`..parallel.make_mesh`): ``q0`` (or ``resume_state``)
+    is this rank's block of chains (:func:`..parallel.shard_chains`);
+    the returned samples, diagnostics and state are this rank's rows of
+    the single-process run's (:func:`..diagnostics.gather_chains`
+    joins them).
     """
+    split(mesh)  # a mesh the engine cannot take raises before any work
     dev = resolve_device(device)
     if isinstance(seed, torch.Tensor):
         key = seed.to(device=dev, dtype=torch.int64)
@@ -188,7 +206,7 @@ def run_walnuts(seed, q0=None, *, target, cfg: WalnutsConfig = WalnutsConfig(),
     for i in range(1, num_iter + 1):
         state, res = sampler_step(threefry.fold_in(key, i), state,
                                   target=target, cfg=cfg, warmup=warmup,
-                                  inv_mass=inv_mass)
+                                  inv_mass=inv_mass, mesh=mesh)
         samples[i] = target.generated(res.q)
         diags[i - 1] = res.diagnostics
         if collect_orbit_stats:

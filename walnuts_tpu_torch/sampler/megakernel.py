@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.hamiltonian import hamiltonian, uturn
+from ..parallel.mesh import chain_block, gather_rows, reduce_int, split
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
 from ..utils.p2 import P2State, p2_init, p2_push, p2_quantile
@@ -798,21 +799,28 @@ def _nanmedian(x):
     return (mid[0] + mid[1]) * 0.5
 
 
-def pooled_consensus(st: MState, warmup: WarmupConfig):
+def pooled_consensus(st: MState, warmup: WarmupConfig, mesh=None):
     """Batch-median ``(h_cur, delta_cur)`` after a flush period
     (``megakernel.py:1295-1317``): applies while any chain is still in
-    warmup, so all chains leave warmup with one ``(H, delta)``."""
-    in_wu = torch.min(st.it) < warmup.warmup_iter
-    h_cur, delta_cur = st.h_cur, st.delta_cur
+    warmup, so all chains leave warmup with one ``(H, delta)``.  With
+    the chains split over the ranks of ``mesh``, the iteration counts
+    and the per-chain P2 quantiles are all-gathered in rank order (one
+    collective), so every rank takes the median of the whole batch."""
     nan = float("nan")
+    it = st.it
+    qd = torch.where(st.p2d.npush > 10, p2_quantile(st.p2d), nan)
+    qh = torch.where(st.p2h.npush > 10, p2_quantile(st.p2h), nan)
+    if split(mesh):
+        it, qd, qh = gather_rows(torch.stack([it.to(qd.dtype), qd, qh]),
+                                 mesh, dim=1)
+    in_wu = torch.min(it) < warmup.warmup_iter
+    h_cur, delta_cur = st.h_cur, st.delta_cur
     if warmup.adapt_delta:
-        med = _nanmedian(torch.where(st.p2d.npush > 10,
-                                     p2_quantile(st.p2d), nan))
+        med = _nanmedian(qd)
         delta_cur = torch.where(in_wu & torch.isfinite(med) & (med > 0),
                                 warmup.adapt_delta_target / med, delta_cur)
     if warmup.adapt_h:
-        med = _nanmedian(torch.where(st.p2h.npush > 10,
-                                     p2_quantile(st.p2h), nan))
+        med = _nanmedian(qh)
         h_cur = torch.where(in_wu & torch.isfinite(med),
                             delta_cur ** (1.0 / 3.0) * torch.exp(med), h_cur)
     return h_cur, delta_cur
@@ -961,7 +969,8 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
                       mk_state: MState = None,
                       adapt_state=None,
                       micro_unroll: int = 1,
-                      device=DEFAULT_DEVICE):
+                      device=DEFAULT_DEVICE,
+                      mesh=None):
     """Stream WALNUTS transitions for the chains ``q0 [C, D]`` (the
     JAX ``run_walnuts_fused`` with ``rng="hash"``).
 
@@ -971,10 +980,14 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
     ``mk_state`` and ``adapt_state`` are moved to ``device``, the card
     unless the caller passes ``device="cpu"``; without a card the
     default raises.  On the card every round runs in the hand-written
-    kernel, which implements the targets with a ``kernel_id`` and the
-    identity and :func:`..targets.analytic.omega_sumsq` summaries; any
-    other raises ``NotImplementedError``.  On the CPU the kernel's plain
-    twin, the plain round body, runs.
+    kernel, which implements the targets with a ``kernel_id`` (funnel,
+    std_gauss, Stock-Watson up to 256 rows) and stores the identity,
+    :func:`..targets.analytic.omega_sumsq` and Stock-Watson summaries
+    itself; any other summary is mapped in torch over the positions the
+    kernel draws (``round_kernel.defer_summary``).  Any other target
+    raises ``NotImplementedError`` on the card:
+    :func:`run_walnuts_fused_plain` runs it there by name.  On the CPU
+    the plain twin, the plain round body, runs.
 
     ``stop_mode``: ``"per_chain"`` (every chain stops at ``num_iter``
     draws), ``"total"`` (until ``C * num_iter`` draws exist; rings keep
@@ -991,10 +1004,19 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
     granularity) and appends the engine state, which ``mk_state``
     resumes exactly.
 
+    ``mesh`` (:func:`..parallel.make_mesh`): ``q0`` and the per-chain
+    arguments are this rank's block of chains
+    (:func:`..parallel.shard_chains`).  Its hash draws are keyed by the
+    global chain ids, the stop test counts every rank's chains (an
+    all-reduce per flush period) and the pooled consensus takes the
+    whole batch's median, so every rank makes as many launches as one
+    process would and returns its rows of that run.
+
     Returns ``(samples [R, C, dg], diagnostics [Rd, C, 24], q_final
     [C, D], counts [C], total_grads)``, plus ``(h, delta, (p2h, p2d))``
     under ``warmup``, plus the state under ``rounds``.  ``total_grads``
-    is the exact int64 sum of the per-chain gradient counts.
+    is the exact int64 sum of the per-chain gradient counts (of this
+    rank's chains under a ``mesh``: the caller sums over ranks).
     """
     from . import round_kernel
 
@@ -1003,7 +1025,7 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
                 stop_mode=stop_mode, warmup=warmup, ring_rows=ring_rows,
                 diag_rows=diag_rows, rounds=rounds, mk_state=mk_state,
                 adapt_state=adapt_state, micro_unroll=micro_unroll,
-                device=device)
+                device=device, mesh=mesh)
 
 
 def run_walnuts_fused_plain(seed, q0, h_step, delta, **kw):
@@ -1019,9 +1041,10 @@ def run_walnuts_fused_plain(seed, q0, h_step, delta, **kw):
 def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
          stop_mode="per_chain", warmup=None, ring_rows=None, diag_rows=None,
          rounds=None, mk_state=None, adapt_state=None, micro_unroll=1,
-         device=DEFAULT_DEVICE):
+         device=DEFAULT_DEVICE, mesh=None):
     from . import round_kernel
 
+    split(mesh)  # a mesh the engine cannot take raises before any work
     dev = resolve_device(device)
     q0 = torch.as_tensor(q0).to(dev)
     h_step, delta, mk_state, adapt_state = (
@@ -1044,29 +1067,47 @@ def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
         q0, h_step, delta, target=target, cfg=cfg, warmup=warmup,
         num_iter=num_iter, ring_rows=ring_rows, diag_rows=diag_rows,
         adapt_state=adapt_state)
+    c0, C_total = chain_block(mesh, C)
     spec = round_kernel.RoundSpec(
         target=target, cfg=cfg, warmup=warmup, stop_mode=stop_mode,
-        num_iter=num_iter, micro_unroll=micro_unroll, seed=int(seed))
+        num_iter=num_iter, micro_unroll=micro_unroll, seed=int(seed), c0=c0)
+    # on the card, a summary the kernel does not store is mapped in torch
+    # over the positions it stages (round_kernel.defer_summary)
+    ring = None
+    if run_period is round_kernel.run_rounds and dev.type == "cuda" and \
+            not round_kernel.check_card(spec):
+        ring = st.samples.clone()
+        ident, st = round_kernel.defer_summary(st, target)
+        spec = spec._replace(target=ident)
     banks = round_kernel.pack(st)
     n = n0 = st.n
     view = round_kernel.unpack(banks, n)
-    total_target = C * num_iter
+    total_target = C_total * num_iter
     while True:
+        # the stop test counts every rank's chains, before the rounds
+        # cap, so that all ranks make the same launches and collectives
         if stop_mode == "total":
-            live = int(view.it.sum()) < total_target
+            live = reduce_int(view.it.sum(), mesh, "sum") < total_target
         else:
-            live = bool((view.it < num_iter).any())
+            live = bool(reduce_int((view.it < num_iter).any(), mesh, "max"))
         if rounds is not None:
             live = live and n < n0 + rounds
         if not live:
             break
+        it0 = None if ring is None else view.it.clone()
         run_period(banks, n, spec)
+        if ring is not None:
+            round_kernel.summarize(ring, view.samples, it0, view.it, target,
+                                   stop_mode, num_iter)
         n += FLUSH_EVERY
         if warmup is not None and warmup.pooled:
-            h_cur, delta_cur = pooled_consensus(view, warmup)
+            h_cur, delta_cur = pooled_consensus(view, warmup, mesh)
             view.h_cur.copy_(h_cur)
             view.delta_cur.copy_(delta_cur)
     st = round_kernel.unpack(banks, n)
+    if ring is not None:
+        st = st._replace(samples=ring, pgen0=target.generated(st.pgen0),
+                         pgen1=target.generated(st.pgen1))
     total_grads = int(st.grad_ct.to(torch.int64).sum())
     out = (st.samples, st.diags, st.qc, st.it, total_grads)
     if warmup is not None:

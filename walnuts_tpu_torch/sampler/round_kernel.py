@@ -32,8 +32,19 @@ zero-padded to ``Dp = 32 * ceil(D / 32)`` so that one chain's vectors
 are one aligned block; the slabs as ``[C, S, D]`` and the rings in the
 engine's ``[R, C, dg]`` / ``[Rd, C, 24]`` layout.  The P2 warmup
 estimators ride as extra rows.
+
+The kernel stores three summaries itself (the identity, ``omega_sumsq``
+and Stock-Watson's).  For any other summary of a kernel target, the
+kernel stores the drawn positions in a two-row staging ring and torch
+maps the user's summary over the rows each period staged
+(:func:`defer_summary`, :func:`summarize`).  A target without a fused
+gradient, or a Stock-Watson series longer than ``SW_TMAX``, raises on
+CUDA banks (:func:`check_card`, before any launch); the plain twin runs
+such targets on the card only when the caller asks for it by name
+(``megakernel.run_walnuts_fused_plain(device=...)``).
 """
 
+import copy
 import ctypes
 import math
 from typing import NamedTuple, Optional
@@ -178,7 +189,9 @@ def unpack(b: Banks, n: int) -> MState:
 
 class RoundSpec(NamedTuple):
     """What a flush period runs: the static arguments of
-    ``run_walnuts_fused`` and the int32 hash seed."""
+    ``run_walnuts_fused``, the int32 hash seed and the global id ``c0``
+    of the banks' first chain (its rank's offset when chains are split
+    over ranks)."""
     target: object
     cfg: WalnutsConfig
     warmup: Optional[WarmupConfig]
@@ -186,6 +199,7 @@ class RoundSpec(NamedTuple):
     num_iter: int
     micro_unroll: int
     seed: int
+    c0: int = 0
 
 
 launches = 0  # CUDA kernel launches made by run_rounds in this process
@@ -208,8 +222,8 @@ def run_rounds_plain(b: Banks, n: int, spec: RoundSpec):
     flush, written back into the banks."""
     st = unpack(b, n)
     C, D = st.qc.shape
-    draw = make_hash_draw(spec.seed, torch.arange(C, device=st.qc.device),
-                          D, st.qc.dtype)
+    cid = torch.arange(spec.c0, spec.c0 + C, device=st.qc.device)
+    draw = make_hash_draw(spec.seed, cid, D, st.qc.dtype)
     body = make_round_body(target=spec.target, cfg=spec.cfg,
                            warmup=spec.warmup, stop_mode=spec.stop_mode,
                            num_iter=spec.num_iter,
@@ -236,14 +250,19 @@ class _RoundParams(ctypes.Structure):
             "proto_d", "stop_mode", "num_iter", "micro_unroll", "nbase",
             "seed", "warmup", "adapt_h", "adapt_delta", "pooled",
             "warmup_iter", "target", "gen", "precision", "sw_T",
-            "sw_proper")])
+            "sw_proper", "c0")])
 
 
 KERNEL_TARGETS = {"funnel": 0, "std_gauss": 1, "stock_watson": 2}
 SW_TMAX = 256  # Stock-Watson series the kernel takes: 8 indices per lane
 
 
-def _gen_id(target):
+PLAIN_ON_CARD = ("megakernel.run_walnuts_fused_plain(..., device=...) runs "
+                 "its plain twin on the card")
+
+
+def _summary_id(target):
+    """The kernel's id of ``target``'s summary, or None if it has none."""
     gen = target._generated
     if gen is None:
         return 0
@@ -252,19 +271,96 @@ def _gen_id(target):
     if (target.kernel_id == "stock_watson"
             and getattr(gen, "kernel_summary", None) == "stock_watson"):
         return 2
+    return None
+
+
+def _gen_id(target):
+    gid = _summary_id(target)
+    if gid is not None:
+        return gid
     raise NotImplementedError(
         f"the CUDA round kernel stores the identity, omega_sumsq or "
-        f"Stock-Watson summary, not {gen!r}; other summaries wait for a "
-        "kernel of their own (ROADMAP queue 2)")
+        f"Stock-Watson summary, not {target._generated!r}; "
+        "run_walnuts_fused maps other summaries in torch over the positions "
+        "the kernel stores (defer_summary); in the kernel they wait for "
+        "ROADMAP queue 2")
+
+
+def _target_id(target):
+    if target.kernel_id not in KERNEL_TARGETS:
+        raise NotImplementedError(
+            f"the CUDA round kernel implements the funnel, std_gauss and "
+            f"stock_watson targets, not {target.name!r}; other targets wait "
+            f"for a kernel path of their own (ROADMAP queue 2), and "
+            f"{PLAIN_ON_CARD}")
+    return KERNEL_TARGETS[target.kernel_id]
+
+
+def _sw_rows(target, D):
+    T = target.kernel_args["T"]
+    if not 3 <= T <= SW_TMAX or 3 * T != D:
+        raise NotImplementedError(
+            f"the CUDA round kernel runs Stock-Watson series of 3 to "
+            f"{SW_TMAX} rows at D = 3T; got T = {T}, D = {D}; "
+            f"{PLAIN_ON_CARD}")
+    return T
+
+
+def check_card(spec: RoundSpec) -> bool:
+    """Whether the kernel runs ``spec`` by itself (True), or needs its
+    summary mapped in torch (False: :func:`defer_summary`).  Raises
+    ``NotImplementedError`` for a target without a fused gradient or a
+    Stock-Watson series the kernel does not take; decided from the spec
+    alone, before any launch."""
+    tgt = spec.target
+    _target_id(tgt)
+    if tgt.kernel_id == "stock_watson":
+        _sw_rows(tgt, tgt.dim)
+    return _summary_id(tgt) is not None
+
+
+def defer_summary(st: MState, target):
+    """The kernel's side of a summary it does not store:
+    ``(target', st')``, where ``target'`` is ``target`` with the identity
+    summary and ``st'`` holds two-row staging rings of positions in
+    place of ``st``'s samples (the pending slots, empty between
+    periods, are resized to match).  A period stages at most two draws
+    per chain (a chain with both slots full starts no transition), at
+    rows ``it % 2``; :func:`summarize` maps them into the real ring."""
+    ident = copy.copy(target)
+    ident._generated = None
+    C, D = st.qc.shape
+    z = st.qc.new_zeros((C, D))
+    return ident, st._replace(samples=st.qc.new_zeros((2, C, D)),
+                              pgen0=z, pgen1=z.clone())
+
+
+def summarize(ring, stage, it0, it1, target, stop_mode: str, num_iter: int):
+    """Map ``target``'s summary over the draws one period staged and
+    write them into ``ring [R, C, dg]`` at the rows the kernel's flush
+    would: chain c staged its draws ``it0[c] ..`` (at most two, fewer
+    than ``it1[c]``; under ``min_per_chain`` only those before
+    ``num_iter``), draw i at ``stage[i % 2, c]`` and ``ring[i % R, c]``.
+    No host sync: rows a chain did not stage keep their values."""
+    R, C = ring.shape[:2]
+    dev = ring.device
+    i = it0.long() + torch.arange(2, device=dev)[:, None]   # [2, C]
+    ok = i < it1
+    if stop_mode == "min_per_chain":
+        ok = ok & (i < num_iter)
+    cid = torch.arange(C, device=dev).expand(2, C)
+    g = target.generated(stage[i % 2, cid]).to(ring.dtype)  # [2, C, dg]
+    ok = ok[..., None]
+    if R == 1:  # both draws land on the one row; the later one stays
+        ring[0] = torch.where(ok[1], g[1], torch.where(ok[0], g[0], ring[0]))
+    else:
+        row = i % R
+        ring[row, cid] = torch.where(ok, g, ring[row, cid])
 
 
 def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
     tgt, cfg, wu = spec.target, spec.cfg, spec.warmup
-    if tgt.kernel_id not in KERNEL_TARGETS:
-        raise NotImplementedError(
-            f"the CUDA round kernel implements the funnel, std_gauss and "
-            f"stock_watson targets, not {tgt.name!r}; other targets wait "
-            "for a kernel of their own (ROADMAP queue 2)")
+    tgt_id = _target_id(tgt)
     NF, C = b.sf.shape
     S, D = b.slab_q.shape[1:]
     dg = b.samples.shape[2]
@@ -277,11 +373,7 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
     s_sc = cfg.step_size_rand_scale
     y_ptr, sw_T, sw_proper = None, 0, 0
     if tgt.kernel_id == "stock_watson":
-        sw_T, sw_proper = tgt.kernel_args["T"], int(tgt.kernel_args["proper"])
-        if not 3 <= sw_T <= SW_TMAX or 3 * sw_T != D:
-            raise NotImplementedError(
-                f"the CUDA round kernel runs Stock-Watson series of 3 to "
-                f"{SW_TMAX} rows at D = 3T; got T = {sw_T}, D = {D}")
+        sw_T, sw_proper = _sw_rows(tgt, D), int(tgt.kernel_args["proper"])
         y_ptr = tgt.kernel_args["y"](b.vx).data_ptr()
     n_inn = 3 * sw_T - 4
     return _RoundParams(
@@ -296,8 +388,8 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
         n, spec.seed, int(wu is not None), int(bool(wu and wu.adapt_h)),
         int(bool(wu and wu.adapt_delta)), int(bool(wu and wu.pooled)),
         wu.warmup_iter if wu else 0,
-        KERNEL_TARGETS[tgt.kernel_id], _gen_id(tgt),
-        0 if dtype == torch.float64 else 1, sw_T, sw_proper)
+        tgt_id, _gen_id(tgt),
+        0 if dtype == torch.float64 else 1, sw_T, sw_proper, spec.c0)
 
 
 def _check(b: Banks):

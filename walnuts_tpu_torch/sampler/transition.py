@@ -72,28 +72,38 @@ def _mmax(cur, new, mask):
     return torch.where(mask, torch.maximum(cur, new), cur)
 
 
-def _draws(key, C, D, T, dtype, cfg, im):
-    """Every draw of one transition, in one batched pass per kind."""
+def _draws(key, C, D, T, dtype, cfg, im, chain_block=None):
+    """Every draw of one transition, in one batched pass per kind; with
+    ``chain_block = (c0, C_total)``, rows ``c0 .. c0+C-1`` of the draws
+    of ``C_total`` chains (every draw's leading axis is the chains')."""
+    Cg, rows = C, None
+    if chain_block is not None:
+        c0, Cg = chain_block
+        rows = (c0, c0 + C)
     k_mom, k_dirs, k_orbit = threefry.split(key, 3)
-    v0 = refresh_momentum(k_mom, (C, D), im, dtype)
-    xi_all = torch.where(threefry.bernoulli(k_dirs, 0.5, (C, cfg.m)),
+    v0 = refresh_momentum(k_mom, (Cg, D), im, dtype, rows)
+    xi_all = torch.where(threefry.bernoulli(k_dirs, 0.5, (Cg, cfg.m),
+                                            rows=rows),
                          1.0, -1.0).to(dtype)
     steps = torch.arange(T, dtype=torch.int64, device=key.device)
     sub = threefry.split(threefry.fold_in(k_orbit, steps), 6)  # [T, 6, 2]
     s = cfg.step_size_rand_scale
-    jitter = threefry.uniform(sub[:, 0], (C, 2), dtype, 1.0 - s, 1.0 + s)
+    jitter = threefry.uniform(sub[:, 0], (Cg, 2), dtype, 1.0 - s, 1.0 + s,
+                              rows)
     if cfg.integrator == "adapt_leapfrog_r2p":
-        coins = [threefry.uniform(sub[:, j], (C,), torch.float64)
-                 for j in (1, 2)]
+        coins = [threefry.uniform(sub[:, j], (Cg,), torch.float64,
+                                  rows=rows) for j in (1, 2)]
     else:  # the other integrators draw nothing
         coins = [[None] * T] * 2
-    u_cat = [threefry.uniform(sub[:, j], (C,), dtype) for j in (3, 4)]
-    u_acc = threefry.uniform(sub[:, 5], (C,), dtype)
+    u_cat = [threefry.uniform(sub[:, j], (Cg,), dtype, rows=rows)
+             for j in (3, 4)]
+    u_acc = threefry.uniform(sub[:, 5], (Cg,), dtype, rows=rows)
     return v0, xi_all, jitter, coins, u_cat, u_acc
 
 
 def walnuts_transition(key, q, lp, g, h_step, delta, p2: P2State, warmup,
-                       *, target, cfg: WalnutsConfig, inv_mass=None):
+                       *, target, cfg: WalnutsConfig, inv_mass=None,
+                       chain_block=None):
     """One WALNUTS transition for a ``[C, D]`` chain batch, on the device
     of its input tensors (``key``, ``q``, ...): unlike the public entries
     it takes no ``device=`` and does not default to the card.
@@ -109,6 +119,9 @@ def walnuts_transition(key, q, lp, g, h_step, delta, p2: P2State, warmup,
         target, cfg: the target and the static configuration.
         inv_mass: optional diagonal inverse mass ``[D]`` (used when
             ``cfg.use_inv_mass``).
+        chain_block: ``(c0, C_total)`` when ``q`` holds chains ``c0 ..
+            c0+C-1`` of a batch of ``C_total`` split over ranks: the
+            draws are those chains' rows of the whole batch's draws.
     """
     C, D = q.shape
     dtype, dev = q.dtype, q.device
@@ -118,7 +131,7 @@ def walnuts_transition(key, q, lp, g, h_step, delta, p2: P2State, warmup,
     T, S = sched.n_steps, sched.capacity
 
     v0, xi_all, jitter, coins, u_cat, u_acc = _draws(
-        key, C, D, T, dtype, cfg, im)
+        key, C, D, T, dtype, cfg, im, chain_block)
     hloc_all = h_step[None, :, None] * jitter                 # [T, C, 2]
     h0 = hamiltonian(lp, v0, im)
 

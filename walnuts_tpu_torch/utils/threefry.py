@@ -17,6 +17,14 @@ package.  What is reproduced is JAX 0.9 with
   ``random.py``'s ``_uniform``, ``_normal_real`` and ``_bernoulli``
   (mode ``"low"``), with XLA's ``erf_inv`` polynomials.
 
+Because the counter is the flat index into the draw's global shape, the
+draws of a block of leading rows are those counters alone: each of
+:func:`random_bits`, :func:`uniform`, :func:`bernoulli` and
+:func:`normal` takes ``rows=(r0, r1)`` and returns ``full[r0:r1]`` bit
+for bit while hashing only its own counters, so a rank that holds rows
+``r0 .. r1`` of a chain batch draws what a single process would draw for
+them.
+
 A key is an int64 tensor of shape ``[..., 2]`` holding two uint32 words:
 torch has no uint32 arithmetic on the CPU, so the words ride in int64
 and every sum is masked back to 32 bits (threefry needs only add, xor
@@ -92,10 +100,11 @@ def fma(a, b, c):
     return s + (t + e)
 
 
-def _hash_index(key, n):
-    """Hash the counters ``0 .. n-1`` (high word 0) under a batch of
-    keys ``[..., 2]``: two words of shape ``[..., n]``."""
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+def _hash_index(key, n, start=0):
+    """Hash the counters ``start .. start+n-1`` (high word 0) under a
+    batch of keys ``[..., 2]``: two words of shape ``[..., n]``."""
+    idx = torch.arange(start, start + n, dtype=torch.int64,
+                       device=key.device)
     k1, k2 = key[..., 0, None], key[..., 1, None]
     return threefry2x32(k1, k2, torch.zeros_like(idx), idx)
 
@@ -115,16 +124,29 @@ def fold_in(key, data):
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def random_bits(key, bit_width: int, shape):
+def _window(shape, rows):
+    """``(first counter, counters, output shape)`` of the leading rows
+    ``rows = (r0, r1)`` of a draw of global ``shape`` (all of it for
+    ``None``)."""
+    if rows is None:
+        return 0, math.prod(shape), shape
+    r0, r1 = (int(r) for r in rows)
+    if not shape or not 0 <= r0 <= r1 <= shape[0]:
+        raise ValueError(f"rows {rows} outside the leading axis of {shape}")
+    inner = math.prod(shape[1:])
+    return r0 * inner, (r1 - r0) * inner, (r1 - r0,) + shape[1:]
+
+
+def random_bits(key, bit_width: int, shape, rows=None):
     """``jax.random.bits``: ``[..., 2]`` keys -> ``[..., *shape]`` words
     (32-bit as int64 values below 2^32; 64-bit as the high and low
-    words ``(hi, lo)``)."""
-    shape = tuple(shape)
-    n = math.prod(shape)
-    b1, b2 = _hash_index(key, n)
+    words ``(hi, lo)``).  ``rows=(r0, r1)`` returns rows ``r0 .. r1`` of
+    the leading axis of ``shape`` alone."""
+    start, n, out_shape = _window(tuple(shape), rows)
+    b1, b2 = _hash_index(key, n, start)
     lead = key.shape[:-1]
-    b1 = b1.reshape(lead + shape)
-    b2 = b2.reshape(lead + shape)
+    b1 = b1.reshape(lead + out_shape)
+    b2 = b2.reshape(lead + out_shape)
     if bit_width == 32:
         return b1 ^ b2
     if bit_width == 64:
@@ -132,16 +154,18 @@ def random_bits(key, bit_width: int, shape):
     raise ValueError(f"bit_width must be 32 or 64, got {bit_width}")
 
 
-def uniform(key, shape, dtype=torch.float64, minval=0.0, maxval=1.0):
+def uniform(key, shape, dtype=torch.float64, minval=0.0, maxval=1.0,
+            rows=None):
     """``jax.random.uniform``: the mantissa bits under the exponent of
-    1.0, minus one, scaled to ``[minval, maxval)`` in ``dtype``."""
+    1.0, minus one, scaled to ``[minval, maxval)`` in ``dtype``
+    (``rows`` as in :func:`random_bits`)."""
     if dtype == torch.float64:
-        hi, lo = random_bits(key, 64, shape)
+        hi, lo = random_bits(key, 64, shape, rows)
         # the top 52 of the 64 bits, ORed into 1.0's exponent
         fb = ((hi << 20) | (lo >> 12)) | 0x3FF0000000000000
         floats = fb.view(torch.float64) - 1.0
     elif dtype == torch.float32:
-        fb = (random_bits(key, 32, shape) >> 9) | 0x3F800000
+        fb = (random_bits(key, 32, shape, rows) >> 9) | 0x3F800000
         floats = fb.to(torch.int32).view(torch.float32) - 1.0
     else:
         raise ValueError(f"uniform draws float32 or float64, got {dtype}")
@@ -184,10 +208,11 @@ def randint(key, shape, minval, maxval, dtype=torch.int64):
     return (off + minval).to(dtype)
 
 
-def bernoulli(key, p=0.5, shape=(), dtype=torch.float64):
+def bernoulli(key, p=0.5, shape=(), dtype=torch.float64, rows=None):
     """``jax.random.bernoulli`` (mode ``"low"``): ``uniform < p``, drawn
-    in ``p``'s dtype (float64 for a Python float under x64)."""
-    return uniform(key, shape, dtype) < p
+    in ``p``'s dtype (float64 for a Python float under x64; ``rows`` as
+    in :func:`random_bits`)."""
+    return uniform(key, shape, dtype, rows=rows) < p
 
 
 def gumbel(key, shape, dtype=torch.float64):
@@ -278,10 +303,10 @@ def erf_inv(x):
     return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
 
 
-def normal(key, shape, dtype=torch.float64):
+def normal(key, shape, dtype=torch.float64, rows=None):
     """``jax.random.normal``: ``sqrt(2) erf_inv(u)`` for ``u`` uniform
-    on ``[nextafter(-1, 0), 1)``."""
+    on ``[nextafter(-1, 0), 1)`` (``rows`` as in :func:`random_bits`)."""
     lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype),
                          torch.tensor(0.0, dtype=dtype)).item()
-    u = uniform(key, shape, dtype, lo, 1.0)
+    u = uniform(key, shape, dtype, lo, 1.0, rows)
     return torch.tensor(math.sqrt(2.0), dtype=dtype) * erf_inv(u)
