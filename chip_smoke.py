@@ -34,8 +34,14 @@ for bit, 10c holds the native C++ engine (the CPU oracle) against the
 fused engine on the card, and 10d holds what the kernel does not fuse
 against the CPU: a summary of the user's own (``bench.py``'s, as a
 function), which the kernel stages for torch to map, and ``smile``, a
-target without a fused gradient, which ``run_walnuts_fused`` refuses on
-the card and ``run_walnuts_fused_plain`` runs there by name.
+target without a fused gradient.  Phase 11 runs such targets through
+the kernel's external-gradient instantiation (a period is ``16 *
+micro_unroll + 1`` segment launches with the target's torch
+``logp_grad`` between them): 11a holds it against the plain twin in
+float64 for every analytic target without a fused gradient, a user's
+``logp`` and Stock-Watson at T = 300, 11b runs the main path's timed
+phase with funnel(101) handed over as a user's target, with its speed
+and the split of a period.
 
 Run from the repository root, with no arguments:
 
@@ -47,7 +53,8 @@ result.  The last line of standard output is ``{"ok": true, "device":
 {...}}``; the line before it lists each kernel with its launches on the
 main path, its largest error against the plain twin, both times, the
 least time the card could take for a launch's work (``bound_ms``) and
-the main-path instantiation's registers and resident warps per SM.  The
+the instantiation's registers and resident warps per SM; the
+external-gradient entry's times are per 16-round period.  The
 line after the device line is the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
 prints them.
@@ -116,7 +123,7 @@ def main():
     from walnuts_tpu_torch.sampler import megakernel as mk
     from walnuts_tpu_torch.sampler import round_kernel as rk
 
-    attrs = phase_build(_build, rk)
+    attrs, ext_attrs = phase_build(_build, rk)
     phase_f64(tw, mk, rk, dev)
     max_abs_err = phase_f32(tw, mk, rk, dev)
     warm, launches, main_run = phase_main(tw, mk, rk, dev)
@@ -130,6 +137,7 @@ def main():
     phase_ranks_main(tw, mk, rk, dev, main_run)
     phase_native(tw, mk, rk, dev)
     phase_card_route(tw, mk, rk, dev)
+    ext = phase_external(tw, mk, rk, dev, warm, main_run, ext_attrs)
     kernel = {"route": "cuda",
               "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
               "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
@@ -139,7 +147,8 @@ def main():
              max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by, regs=attrs["regs"],
              warps_per_sm=attrs["warps_per_sm"]),
-        dict(kernel, name="walnuts_round_kernel[stock_watson]", **sw)]}))
+        dict(kernel, name="walnuts_round_kernel[stock_watson]", **sw),
+        dict(kernel, name="walnuts_round_kernel[external_grad]", **ext)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -169,6 +178,7 @@ def phase_build(_build, rk):
                                              ("std_gauss", "1"))
               for D in (32, 64, 96, 128, 160)]  # DPL 1-4, then 0 (D > 128)
     shapes.append(("stock_watson", "2", 756))  # DPL 0 at every D
+    shapes.append(("external", "3", 101))  # DPL 0 at every D
     for prec, dtype in (("f", torch.float32), ("d", torch.float64)):
         for tgt, tid, D in shapes:
             a = rk.kernel_attributes(dtype, tgt, D)
@@ -179,7 +189,9 @@ def phase_build(_build, rk):
                 f"local bytes, {a['warps_per_sm']} warps/SM")
     main = rk.kernel_attributes(torch.float32, "funnel", 101)
     log(f"  main path (float32 funnel, D=101): {main}")
-    return main
+    ext = rk.kernel_attributes(torch.float32, "external", 101)
+    log(f"  external-gradient segments (float32, D=101): {ext}")
+    return main, ext
 
 
 def _banks_compare(a, b, *, rtol, atol, slab_rtol=None, chains=None):
@@ -224,10 +236,11 @@ def _banks_compare(a, b, *, rtol, atol, slab_rtol=None, chains=None):
 def _pair(tw, mk, rk, dev, *, D, C, m, dtype, rounds, warmup=None,
           stop_mode="min_per_chain", num_iter=50, micro_unroll=1,
           generated=None, ring_rows=None, target=None, seed=987654,
-          q_seed=1234, delta=0.15, diag_rows=8):
+          q_seed=1234, h=0.4, delta=0.15, diag_rows=8):
     """Run the same capped invocation (of funnel(D) unless ``target`` is
-    given) through the kernel and the plain twin; return both final bank
-    sets."""
+    given) through the kernel (one launch per period, or the
+    external-gradient segments) and the plain twin; return both final
+    bank sets."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(q_seed)
@@ -238,12 +251,12 @@ def _pair(tw, mk, rk, dev, *, D, C, m, dtype, rounds, warmup=None,
               stop_mode=stop_mode, warmup=warmup, rounds=rounds,
               ring_rows=ring_rows, diag_rows=diag_rows,
               micro_unroll=micro_unroll)
-    h = torch.full((C,), 0.4, dtype=dtype, device=dev)
+    h = torch.full((C,), h, dtype=dtype, device=dev)
     dl = torch.full((C,), delta, dtype=dtype, device=dev)
-    before = rk.launches
+    before = rk.launches + rk.segment_launches
     st_k = mk.run_walnuts_fused(seed, q0, h, dl, **kw)[-1]
     torch.cuda.synchronize()
-    if rk.launches <= before:
+    if rk.launches + rk.segment_launches <= before:
         raise AssertionError("the kernel path made no launch")
     st_p = mk.run_walnuts_fused_plain(seed, q0, h, dl, **kw)[-1]
     torch.cuda.synchronize()
@@ -325,32 +338,42 @@ def phase_f32(tw, mk, rk, dev):
          dict(rtol=1e-4, atol=1e-3, slab_rtol=2.0 ** -7)),
     ]
     worst = 0.0
-    it = rk.I_FIELDS.index("it")
     for name, kw, tol in cases:
         a, b = _pair(tw, mk, rk, dev, D=101, m=8, dtype=torch.float32,
                      rounds=16, **kw)
-        agree = (a.si == b.si).all(0)
-        frac = float(agree.float().mean())
-        if frac < 0.99:
-            raise AssertionError(
-                f"{name}: integer state agrees on {frac:.4f} of chains")
-        cols = agree.nonzero().flatten()
-        err = _banks_compare(
-            rk.Banks(a.sf, a.si, a.vx, a.slab_q.float(), a.slab_v.float(),
-                     a.samples, a.diags),
-            rk.Banks(b.sf, b.si, b.vx, b.slab_q.float(), b.slab_v.float(),
-                     b.samples, b.diags), chains=cols, **tol)
-        slab = max(float((a.slab_q[cols].float() - b.slab_q[cols].float())
-                         .abs().max()),
-                   float((a.slab_v[cols].float() - b.slab_v[cols].float())
-                         .abs().max()))
-        tol_s = ", ".join(f"{k} {v:g}" for k, v in tol.items())
-        log(f"phase 3 f32/bf16 kernel vs plain: {name}, 16 rounds: integer "
-            f"state equal on {frac:.4f} of chains; on those, max abs float "
-            f"diff {err:.3e} ({tol_s}), slab max abs diff {slab:.3e}; draws "
-            f"{int(a.si[it].sum())}")
-        worst = max(worst, err)
+        worst = max(worst, _f32_compare(
+            rk, "phase 3 f32/bf16 kernel vs plain: " + name, a, b, tol))
     return worst
+
+
+def _f32_compare(rk, name, a, b, tol):
+    """Phase 3's test of one float32 period, kernel banks ``a`` against
+    the twin's ``b``: integer state equal on >= 99% of chains, floats on
+    those chains within ``tol``.  Logs and returns the largest float
+    difference."""
+    import torch
+
+    agree = (a.si == b.si).all(0)
+    frac = float(agree.float().mean())
+    if frac < 0.99:
+        raise AssertionError(
+            f"{name}: integer state agrees on {frac:.4f} of chains")
+    cols = agree.nonzero().flatten()
+    err = _banks_compare(
+        rk.Banks(a.sf, a.si, a.vx, a.slab_q.float(), a.slab_v.float(),
+                 a.samples, a.diags),
+        rk.Banks(b.sf, b.si, b.vx, b.slab_q.float(), b.slab_v.float(),
+                 b.samples, b.diags), chains=cols, **tol)
+    slab = max(float((a.slab_q[cols].float() - b.slab_q[cols].float())
+                     .abs().max()),
+               float((a.slab_v[cols].float() - b.slab_v[cols].float())
+                     .abs().max()))
+    tol_s = ", ".join(f"{k} {v:g}" for k, v in tol.items())
+    it = rk.I_FIELDS.index("it")
+    log(f"{name}, 16 rounds: integer state equal on {frac:.4f} of chains; "
+        f"on those, max abs float diff {err:.3e} ({tol_s}), slab max abs "
+        f"diff {slab:.3e}; draws {int(a.si[it].sum())}")
+    return err
 
 
 MAIN_C, MAIN_D, MAIN_M, MAIN_WARMUP, MAIN_ITERS = 8192, 101, 8, 700, 300
@@ -466,17 +489,18 @@ def phase_main(tw, mk, rk, dev):
                                 t_timed=t_timed, t_warm=r["t_warm"])
 
 
-def _bound(rk, b0, b1, periods, warmup, flops_per_coord=FLOPS_PER_COORD):
+def _bound(rk, b0, b1, periods, warmup, flops_per_coord=FLOPS_PER_COORD,
+           extra_bytes=0):
     """Least ms a launch could take on an H100 SXM for the work between
     bank sets ``b0`` and ``b1`` (``periods`` launches apart): the larger
     of two times.  One is the bytes over the HBM rate: the state that is
     live across a launch, read once and written once (the scalar rows,
     the P2 estimators' rows only under ``warmup``, the vectors at their
-    D columns, the slabs), plus the ring rows the draws write.  The two
-    pending slots' staging rows are empty when a launch starts and when
-    it ends, so they are left out.  The other is the gradient
-    evaluations' float operations over the float32 rate.  Returns
-    ``(ms, "bytes" or "operations", detail)``."""
+    D columns, the slabs), plus the ring rows the draws write, plus
+    ``extra_bytes`` per launch.  The two pending slots' staging rows are
+    empty when a launch starts and when it ends, so they are left out.
+    The other is the gradient evaluations' float operations over the
+    float32 rate.  Returns ``(ms, "bytes" or "operations", detail)``."""
     C, S, D = b0.slab_q.shape
     isz = b0.vx.element_size()
     p2 = warmup is not None
@@ -488,12 +512,16 @@ def _bound(rk, b0, b1, periods, warmup, flops_per_coord=FLOPS_PER_COORD):
     it, gc = rk.I_FIELDS.index("it"), rk.I_FIELDS.index("grad_ct")
     draws = int((b1.si[it].long() - b0.si[it].long()).sum()) / periods
     grads = int((b1.si[gc].long() - b0.si[gc].long()).sum()) / periods
-    nbytes = 2 * state + draws * (b0.samples.shape[2] + 24) * isz
+    nbytes = (2 * state + draws * (b0.samples.shape[2] + 24) * isz
+              + extra_bytes)
     byte_ms = nbytes / HBM_BYTES_S * 1e3
     op_ms = grads * D * flops_per_coord / F32_FLOP_S * 1e3
     gflop = grads * D * flops_per_coord / 1e9
     detail = (f"{nbytes / 1e6:.1f} MB moved ({2 * state / 1e6:.1f} MB of "
-              f"state in and out) = {byte_ms:.4f} ms at 3.35 TB/s; "
+              f"state in and out"
+              + (f", {extra_bytes / 1e6:.1f} MB of gradient exchange"
+                 if extra_bytes else "")
+              + f") = {byte_ms:.4f} ms at 3.35 TB/s; "
               f"{grads:.0f} grad evals = {gflop:.3f} GFLOP = {op_ms:.4f} ms "
               f"at 67 TFLOP/s")
     if byte_ms >= op_ms:
@@ -1499,22 +1527,22 @@ def _bench_summary(q):
 
 
 def phase_card_route(tw, mk, rk, dev):
-    """10d: what the kernel does not fuse, on the card.  A summary the
-    kernel does not store (``bench.py``'s, as a function of its own)
-    runs through the kernel, which stages positions for torch to map:
-    equal to the CPU run under EXACT in float64, and at the main path's
-    timed shape against ``omega_sumsq`` stored in the kernel.  A target
-    without a fused gradient (``smile``) raises in ``run_walnuts_fused``
-    before any launch, and ``run_walnuts_fused_plain`` runs it on the
-    card, equal to the CPU run under EXACT."""
+    """10d: what the kernel does not fuse, on the card, through
+    ``run_walnuts_fused``.  A summary the kernel does not store
+    (``bench.py``'s, as a function of its own) runs through the kernel,
+    which stages positions for torch to map: equal to the CPU run under
+    EXACT in float64, and at the main path's timed shape against
+    ``omega_sumsq`` stored in the kernel.  A target without a fused
+    gradient (``smile``) runs through the kernel's external-gradient
+    segments (phase 11), equal to the CPU run under EXACT."""
     import torch
 
     C = 64
-    for name, target, run in (
+    for name, target, counter in (
             ("funnel(7) with bench.py's summary", tw.targets.funnel(
-                7, generated=_bench_summary), mk.run_walnuts_fused),
-            ("smile through run_walnuts_fused_plain", tw.targets.smile(),
-             mk.run_walnuts_fused_plain)):
+                7, generated=_bench_summary), "launches"),
+            ("smile through the external-gradient segments",
+             tw.targets.smile(), "segment_launches")):
         g = torch.Generator(device="cpu").manual_seed(9)
         q0 = 0.3 * torch.randn(C, target.dim, generator=g,
                                dtype=torch.float64)
@@ -1523,24 +1551,16 @@ def phase_card_route(tw, mk, rk, dev):
                   micro_unroll=2)
         h = torch.full((C,), 0.3, dtype=torch.float64)
         dl = torch.full((C,), 0.2, dtype=torch.float64)
-        rk.launches = 0
-        if run is mk.run_walnuts_fused_plain:
-            try:
-                mk.run_walnuts_fused(31, q0, h, dl, device=dev, **kw)
-            except NotImplementedError as e:
-                if "run_walnuts_fused_plain" not in str(e):
-                    raise
-            else:
-                raise AssertionError("10d: run_walnuts_fused ran smile")
-            if rk.launches:
-                raise AssertionError("10d: smile launched the kernel")
+        rk.launches = rk.segment_launches = 0
         t0 = time.perf_counter()
-        card = run(31, q0, h, dl, device=dev, **kw)
+        card = mk.run_walnuts_fused(31, q0, h, dl, device=dev, **kw)
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
-        launches = rk.launches
-        if (launches > 0) != (run is mk.run_walnuts_fused):
-            raise AssertionError(f"10d {name}: {launches} kernel launches")
+        launches = getattr(rk, counter)
+        if launches == 0 or rk.launches + rk.segment_launches != launches:
+            raise AssertionError(
+                f"10d {name}: {rk.launches} kernel launches, "
+                f"{rk.segment_launches} segment launches")
         cpu = mk.run_walnuts_fused(31, q0, h, dl, device="cpu", **kw)
         a = rk.Banks(*(t.cpu() for t in rk.pack(card[-1])))
         err = _banks_compare(a, rk.pack(cpu[-1]), rtol=1e-9, atol=1e-12)
@@ -1548,7 +1568,7 @@ def phase_card_route(tw, mk, rk, dev):
             raise AssertionError(f"10d {name}: grads {card[4]} vs {cpu[4]}")
         log(f"phase 10d {name}, f64 C={C} m=5, 160 rounds: card == CPU, "
             f"integer banks equal, max abs float diff {err:.3e} (rtol "
-            f"1e-9, atol 1e-12); kernel launches {launches}; draws "
+            f"1e-9, atol 1e-12); {counter} {launches}; draws "
             f"{int(card[3].sum())}, {t_card:.2f} s on the card")
 
     # the main path's timed shape, 1600 rounds from the same start: the
@@ -1584,6 +1604,279 @@ def phase_card_route(tw, mk, rk, dev):
         f"{ms['own']:.4f} ms per launch against omega_sumsq in the kernel "
         f"{ms['omega_sumsq']:.4f} ms (wall, best of 2); positions, counts "
         f"and grads equal, draws within {s_err:.3e}; on {CARD}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: targets without a fused gradient, through the kernel's
+# external-gradient segments
+# ---------------------------------------------------------------------------
+
+# 11b runs the main path's timed phase with funnel(101) handed over as a
+# user's target, its 300 draws per chain cut to this many: at the 22-27
+# ms per period H100 hosts took, 300 draws (8,459 periods) took 203 s
+# and the smoke 1115 s of its 1200 s; 100 draws took 80 s, the smoke
+# 903 s.
+EXT_ITERS = 60
+
+
+def _user_logp(q):
+    """A user's density over one ``[3]`` position, with no gradient."""
+    return (-0.5 * (q[0] ** 2 + (q[1] - 0.5 * q[0] ** 2) ** 2)
+            - 0.125 * q[2] ** 2)
+
+
+def _sw_synthetic(tw, T=300):
+    """Stock-Watson (the proper model) over a numpy-seeded synthetic
+    series of ``T`` quarters, written to the build directory."""
+    import numpy as np
+    from walnuts_tpu_torch import _build
+
+    rng = np.random.default_rng(T)
+    y = np.cumsum(0.3 * rng.normal(size=T)) + rng.normal(size=T)
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    path = _build.BUILD / f"sw_synthetic_{T}.json"
+    path.write_text(json.dumps({"T": T, "y": y.tolist()}))
+    return tw.targets.stock_watson(path, proper=True)
+
+
+def _pending_rows_dropped(rk, b):
+    """Banks ``b`` without the payload rows of the two pending slots.
+    Under a summary mapped in torch the returned state's slots hold the
+    summary of the staged positions, which for a slot no draw used is
+    the summary of zeros, not the plain run's zeros; the slots are empty
+    between periods."""
+    lay = rk.layout(b.samples.shape[2])
+    keep = [i for i in range(b.sf.shape[0])
+            if not lay.pgen0 <= i < lay.pdiag0]
+    return b._replace(sf=b.sf[keep])
+
+
+def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
+    """Phase 11: targets without a fused gradient through the kernel's
+    external-gradient instantiation (a period is ``16 * micro_unroll +
+    1`` segment launches with the target's torch ``logp_grad`` between
+    them).  11a: float64, the targets of the GPU tests against the plain
+    twin on the card (integer banks equal, floats within EXACT, each
+    period's segment count checked), and one autograd target against
+    the CPU.  11b: the main path's timed phase at full width from phase
+    4's adapted chains with funnel(101) handed over as a user's target
+    (its own ``logp_grad``, no ``kernel_id``): the omega gate, grad-evals/s
+    and min-ESS/s; then per period the route's ms against the plain
+    twin's and the fused funnel kernel's in the same call, the split of
+    a period into segment kernels, torch's gradient kernels and the
+    host, the bound, and one float32 period against the twin.  Returns
+    the kernels line's entry."""
+    import torch
+    from walnuts_tpu_torch.diagnostics import ess
+    from walnuts_tpu_torch.utils.parity import EXACT
+
+    # ---- 11a ----
+    C, it = 48, rk.I_FIELDS.index("it")
+    pooled = tw.WarmupConfig(warmup_iter=8, pooled=True)
+    t = tw.targets
+    cases = [
+        ("smile", t.smile(), "per_chain", 1, None),
+        ("corr_gauss", t.corr_gauss(), "total", 4, None),
+        ("rosenbrock", t.rosenbrock(), "min_per_chain", 4, None),
+        ("mod_funnel", t.mod_funnel(), "per_chain", 2,
+         tw.WarmupConfig(warmup_iter=8)),
+        ("funnel_rescaled(5)", t.funnel_rescaled(5), "min_per_chain", 1,
+         pooled),
+        ("ill_conditioned_gauss(5)", t.ill_conditioned_gauss(5), "total", 3,
+         None),
+        ("a user's logp (autograd)", tw.Target(_user_logp, 3, name="user"),
+         "per_chain", 4, pooled),
+        ("Stock-Watson T=300 (synthetic series)", _sw_synthetic(tw),
+         "min_per_chain", 4, None),
+    ]
+    for name, target, stop_mode, unroll, wu in cases:
+        sw = target.dim == 900
+        segs = rk.segment_launches
+        fused = rk.launches
+        t0 = time.perf_counter()
+        a, b = _pair(tw, mk, rk, dev, D=target.dim, C=8 if sw else C,
+                     m=4 if sw else 5, dtype=torch.float64, rounds=160,
+                     target=target, stop_mode=stop_mode, num_iter=12,
+                     micro_unroll=unroll, warmup=wu, diag_rows=4,
+                     h=0.02 if sw else 0.3, delta=0.3 if sw else 0.2,
+                     seed=77)
+        wall = time.perf_counter() - t0
+        periods = -(-160 // mk.FLUSH_EVERY)
+        made = rk.segment_launches - segs
+        if rk.launches != fused or made % (mk.FLUSH_EVERY * unroll + 1) or \
+                not 0 < made <= periods * (mk.FLUSH_EVERY * unroll + 1):
+            raise AssertionError(f"11a {name}: {made} segment launches, "
+                                 f"{rk.launches - fused} fused launches")
+        if sw:
+            a, b = _pending_rows_dropped(rk, a), _pending_rows_dropped(rk, b)
+        err = _banks_compare(a, b, **EXACT)
+        log(f"phase 11a f64 segments == plain: {name} (D={target.dim}, "
+            f"{stop_mode}, micro_unroll={unroll}, "
+            f"{'pooled ' if wu and wu.pooled else ''}"
+            f"{'warmup' if wu else 'fixed tuning'}), 160 rounds: integer "
+            f"banks equal, max abs float diff {err:.3e} (rtol "
+            f"{EXACT['rtol']:g}, atol {EXACT['atol']:g}); {made} segment "
+            f"launches = {made // (mk.FLUSH_EVERY * unroll + 1)} periods x "
+            f"{mk.FLUSH_EVERY * unroll + 1}; draws {int(a.si[it].sum())}; "
+            f"{wall:.2f} s for both")
+    user = tw.Target(_user_logp, 3, name="user")
+    q0 = 0.3 * torch.randn(C, 3, generator=torch.Generator().manual_seed(4),
+                           dtype=torch.float64)
+    kw = dict(target=user, cfg=tw.WalnutsConfig(m=5), num_iter=12,
+              stop_mode="per_chain", rounds=160, diag_rows=4, micro_unroll=4)
+    h = torch.full((C,), 0.3, dtype=torch.float64)
+    card = mk.run_walnuts_fused(5, q0, h, h, device=dev, **kw)
+    cpu = mk.run_walnuts_fused(5, q0, h, h, device="cpu", **kw)
+    err = _banks_compare(rk.Banks(*(x.cpu() for x in rk.pack(card[-1]))),
+                         rk.pack(cpu[-1]), **EXACT)
+    log(f"phase 11a f64 segments on the card == plain engine on the CPU: a "
+        f"user's logp (autograd), C={C} m=5 micro_unroll=4, 160 rounds: "
+        f"integer banks equal, max abs float diff {err:.3e}; draws "
+        f"{int(card[3].sum())}")
+
+    # ---- 11b: the timed phase with funnel(101) as a user's target ----
+    C, D = MAIN_C, MAIN_D
+    f = tw.targets.funnel(D)
+    user = tw.Target(f._logp, D, name=f"funnel_{D}_user",
+                     logp_grad=f._logp_grad,
+                     generated=tw.targets.omega_sumsq)
+    if rk._target_id(user, D) != rk.EXTERNAL:
+        raise AssertionError("11b: the user's funnel has a fused gradient")
+    cfg = tw.WalnutsConfig(m=MAIN_M)
+    kw = dict(target=user, cfg=cfg, num_iter=EXT_ITERS,
+              stop_mode="min_per_chain", diag_rows=8, micro_unroll=4,
+              rounds=12000, device=dev)
+    rk.launches = rk.segment_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, calls = None, 0
+    while True:
+        st = mk.run_walnuts_fused(13, warm.qc, warm.h_cur, warm.delta_cur,
+                                  mk_state=st, **kw)[-1]
+        calls += 1
+        if int(st.it.min()) >= EXT_ITERS:
+            break
+        if time.perf_counter() - t0 > 400:
+            raise AssertionError(f"11b reached {int(st.it.min())} of "
+                                 f"{EXT_ITERS} draws in 400 s")
+    torch.cuda.synchronize()
+    t_ext = time.perf_counter() - t0
+    launches, fused = rk.segment_launches, rk.launches
+    periods = st.n // mk.FLUSH_EVERY
+    if fused or launches != periods * (4 * mk.FLUSH_EVERY + 1):
+        raise AssertionError(f"11b: {launches} segment launches over "
+                             f"{periods} periods, {fused} fused launches")
+    draws = st.samples.double()
+    if tuple(draws.shape) != (EXT_ITERS, C, 2) or \
+            not bool(torch.isfinite(draws).all()):
+        raise AssertionError(f"11b: bad draws {tuple(draws.shape)}")
+    grads = int(st.grad_ct.to(torch.int64).sum())
+    ess_vals = ess(draws)
+    sd_err = abs(float(draws[..., 0].std()) - 3.0)
+    log(f"phase 11b main path's timed phase through the segments: "
+        f"funnel({D}) as a user's target, C={C} m={MAIN_M} f32 "
+        f"micro_unroll=4, {EXT_ITERS} draws from phase 4's adapted chains "
+        f"in {t_ext:.2f} s over {calls} calls ({periods} periods, "
+        f"{launches} segment launches, {fused} fused launches): {grads} "
+        f"grad evals = {grads / t_ext:.1f} grad-evals/s (phase 4, the "
+        f"fused kernel: {main_run['grads'] / main_run['t_timed']:.1f}), ESS "
+        f"{[round(float(e), 1) for e in ess_vals]}, min-ESS/s "
+        f"{float(ess_vals.min()) / t_ext:.2f} (phase 4 "
+        f"{float(main_run['ess'].min()) / main_run['t_timed']:.2f}), "
+        f"|sd(omega) - 3| = {sd_err:.4f}; on {CARD}")
+    if not sd_err < 0.3:
+        raise AssertionError(f"11b: |sd(omega) - 3| = {sd_err:.4f} >= 0.3")
+
+    # one float32 period against the twin at this shape (not counted)
+    counted = rk.launches, rk.segment_launches
+    a, b = _pair(tw, mk, rk, dev, D=D, C=C, m=MAIN_M, dtype=torch.float32,
+                 rounds=16, target=user, num_iter=EXT_ITERS, micro_unroll=4,
+                 diag_rows=8)
+    f32_err = _f32_compare(
+        rk, f"phase 11b f32/bf16 segments vs plain: funnel({D}) as a user's "
+        f"target, C={C} m={MAIN_M} min_per_chain micro_unroll=4", a, b,
+        dict(rtol=1e-4, atol=1e-3, slab_rtol=2.0 ** -7))
+
+    # ms per period: the segments, the fused funnel kernel, the twin, in
+    # turns from the same banks; then the split of a period
+    fused_tgt = tw.targets.funnel(D, generated=tw.targets.omega_sumsq)
+    st0 = mk.init_state(warm.qc, warm.h_cur, warm.delta_cur, target=user,
+                        cfg=cfg, warmup=None, num_iter=EXT_ITERS,
+                        diag_rows=8)
+    spec = rk.RoundSpec(target=user, cfg=cfg, warmup=None,
+                        stop_mode="min_per_chain", num_iter=EXT_ITERS,
+                        micro_unroll=4, seed=13)
+    specs = {"segments": spec, "fused": spec._replace(target=fused_tgt),
+             "plain": spec}
+
+    def timed(name, periods):
+        fn = rk.run_rounds_plain if name == "plain" else rk.run_rounds
+        banks = rk.pack(st0)
+        fn(banks, 0, specs[name])  # warm the path
+        banks = rk.pack(st0)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for i in range(periods):
+            fn(banks, i * mk.FLUSH_EVERY, specs[name])
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / periods, banks
+
+    times = {"segments": [], "fused": [], "plain": []}
+    for name in ("segments", "fused", "plain", "plain", "fused", "segments"):
+        t_ms, banks = timed(name, 2 if name == "plain" else 16)
+        times[name].append(t_ms)
+        if name == "segments":
+            after = banks
+    ms = {k: min(v) for k, v in times.items()}
+
+    from torch.profiler import ProfilerActivity, profile
+    banks = rk.pack(st0)
+    rk.run_rounds(banks, 0, spec)
+    torch.cuda.synchronize()
+    n_prof = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            rk.run_rounds(banks, (i + 1) * mk.FLUSH_EVERY, spec)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_prof
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    seg_ms = sum(e.self_device_time_total for e in events
+                 if "round_kernel" in e.key) / 1e3 / n_prof
+    grad_ms = sum(e.self_device_time_total for e in events
+                  if "round_kernel" not in e.key) / 1e3 / n_prof
+    grad_kernels = sum(e.count for e in events
+                       if "round_kernel" not in e.key) / n_prof
+    rk.launches, rk.segment_launches = counted
+
+    points = mk.FLUSH_EVERY * 4
+    isz = after.vx.element_size()
+    exchange = points * (4 * C * D + 2 * C) * isz  # query, g: w+r; lp: w+r
+    bound = _bound(rk, rk.pack(st0), after, 16, None, extra_bytes=exchange)
+    log(f"phase 11b timing, funnel({D}) as a user's target, C={C} "
+        f"m={MAIN_M} f32 "
+        f"micro_unroll=4, 256 rounds from phase 4's chains (CUDA events, "
+        f"best of 2): segments {ms['segments']:.4f} ms per 16-round period "
+        f"({[round(x, 4) for x in times['segments']]}), the fused funnel "
+        f"kernel {ms['fused']:.4f} ms "
+        f"({[round(x, 4) for x in times['fused']]}), the plain twin "
+        f"{ms['plain']:.3f} ms ({[round(x, 3) for x in times['plain']]}); "
+        f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2]}), segments at "
+        f"{bound[0] / ms['segments']:.1%} of it; on {CARD}")
+    log(f"phase 11b split of a period under torch.profiler ({n_prof} "
+        f"periods): wall {wall:.4f} ms per period, of which the "
+        f"{points + 1} segment kernels {seg_ms:.4f} ms on the card, torch's "
+        f"gradient kernels {grad_ms:.4f} ms ({grad_kernels:.0f} kernels "
+        f"for {points} calls), the card idle "
+        f"{max(0.0, 1 - (seg_ms + grad_ms) / wall):.1%} of the wall (the "
+        f"host's share)")
+    return dict(launches=launches, max_abs_err=f32_err, ms=ms["segments"],
+                plain_ms=ms["plain"], bound_ms=bound[0], bound_by=bound[1],
+                regs=attrs["regs"], warps_per_sm=attrs["warps_per_sm"])
 
 
 def _counts(x):

@@ -218,16 +218,39 @@ def _own_summary(q):
     return torch.stack([q[..., 0], torch.sum(q[..., 1:] ** 2, dim=-1)], -1)
 
 
-@pytest.mark.parametrize("case", ["smile", "funnel_own_summary"])
+def _user_logp(q):
+    """A user's density, written once for both packages: a log density
+    over one ``[3]`` position and no gradient (autodiff in JAX, autograd
+    in the port)."""
+    return (-0.5 * (q[0] ** 2 + (q[1] - 0.5 * q[0] ** 2) ** 2)
+            - 0.125 * q[2] ** 2)
+
+
+# each case: (JAX target, the port's target); all but the last two have
+# no fused gradient in the CUDA kernel
+UNFUSED = {
+    "smile": lambda pkg: pkg.targets.smile(),
+    "corr_gauss": lambda pkg: pkg.targets.corr_gauss(),
+    "rosenbrock": lambda pkg: pkg.targets.rosenbrock(),
+    "mod_funnel": lambda pkg: pkg.targets.mod_funnel(),
+    "funnel_rescaled": lambda pkg: pkg.targets.funnel_rescaled(5),
+    "ill_conditioned_gauss": lambda pkg: pkg.targets.ill_conditioned_gauss(5),
+    "user_lambda": lambda pkg: pkg.Target(_user_logp, 3, name="user"),
+    "funnel_own_summary": lambda pkg: pkg.targets.funnel(
+        D, generated=_own_summary_jax if pkg is wt else _own_summary),
+}
+
+
+@pytest.mark.parametrize("case", list(UNFUSED))
 def test_unfused_target_and_own_summary_match_jax(case):
     """What the CUDA kernel does not fuse, in the plain engine on the CPU
-    against JAX's engine: ``smile`` (autograd gradient) and the funnel
-    with a summary of the user's own; 160 rounds, EXACT."""
-    if case == "smile":
-        jt, pt = wt.targets.smile(), tw.targets.smile()
-    else:
-        jt = wt.targets.funnel(D, generated=_own_summary_jax)
-        pt = tw.targets.funnel(D, generated=_own_summary)
+    against JAX's engine: every target without a fused gradient (the
+    analytic ones, and a user's ``logp`` with no gradient, whose gradient
+    comes from autograd) and the funnel with a summary of the user's own;
+    160 rounds, EXACT.  On the card these run through the kernel's
+    external-gradient instantiation, which the GPU tests hold against
+    this plain engine."""
+    jt, pt = UNFUSED[case](wt), UNFUSED[case](tw)
     q0 = Q0[:, :jt.dim]
     kw = dict(num_iter=12, stop_mode="per_chain", diag_rows=4,
               micro_unroll=2, rounds=160)
@@ -239,7 +262,7 @@ def test_unfused_target_and_own_summary_match_jax(case):
         torch.full((C,), 0.2, dtype=torch.float64), target=pt,
         cfg=tw.WalnutsConfig(m=5), device="cpu", **kw)
     _assert_states_match(want[-1], got[-1])
-    assert got[0].shape == (12, C, 2) and int(got[3].sum()) > C
+    assert got[0].shape == (12, C, pt.generated_dim) and int(got[3].sum()) > C
     assert got[4] == int(np.asarray(want[-1].grad_ct).sum())
     for a, b in zip(want[:4], got[:4]):
         assert_parity(np.asarray(a), b.numpy(), EXACT)

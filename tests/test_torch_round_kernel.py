@@ -161,6 +161,9 @@ def test_one_flush_period_on_cpu_matches_jax(jax_states):
 
 
 def test_kernel_dispatch_rejects_what_it_does_not_implement():
+    """A target without a fused gradient gets the external-gradient
+    instantiation; a summary the kernel does not store, and banks of the
+    wrong dtype or layout, raise."""
     banks = rk.pack(_state())
     spec = rk.RoundSpec(target=tw.targets.funnel(D),
                         cfg=tw.WalnutsConfig(m=M), warmup=None,
@@ -170,9 +173,10 @@ def test_kernel_dispatch_rejects_what_it_does_not_implement():
     assert (params.C, params.D, params.S, params.target, params.gen) == (
         C, D, M - 2, 0, 0)
     assert params.precision == 0 and params.T_rows == 2 ** (M - 1)
+    assert params.seg == 0 and not (params.xq or params.xlp or params.xg)
     custom = tw.Target(tw.targets.funnel(D)._logp, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rk._params(banks, 0, spec._replace(target=custom))
+    params = rk._params(banks, 0, spec._replace(target=custom))
+    assert (params.target, params.gen, params.sw_T) == (rk.EXTERNAL, 0, 0)
     odd_summary = tw.targets.funnel(D, generated=lambda q: q[..., :1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rk._params(banks, 0, spec._replace(target=odd_summary))
@@ -201,14 +205,94 @@ def test_check_card_decides_the_route_from_the_spec():
         assert rk.check_card(spec._replace(target=target))
     assert not rk.check_card(spec._replace(
         target=tw.targets.funnel(D, generated=_lambda_summary)))
+    # every target runs on the card: without a fused gradient (and for a
+    # Stock-Watson series past SW_TMAX) through the external-gradient
+    # instantiation, which stores the identity and omega_sumsq itself
     long_sw = tw.targets.stock_watson()
     long_sw.kernel_args["T"] = rk.SW_TMAX + 1
-    for target, what in ((tw.targets.smile(), "'smile'"),
-                         (tw.Target(tw.targets.funnel(D)._logp, D), "target"),
-                         (long_sw, "T = 257")):
-        with pytest.raises(NotImplementedError,
-                           match=f"(?s){what}.*run_walnuts_fused_plain"):
-            rk.check_card(spec._replace(target=target))
+    banks = rk.pack(_state())
+    for target in (tw.targets.smile(),
+                   tw.Target(tw.targets.funnel(D)._logp, D),
+                   tw.Target(tw.targets.funnel(D)._logp, D,
+                             generated=tw.targets.omega_sumsq),
+                   long_sw):
+        assert rk._target_id(target, target.dim) == rk.EXTERNAL
+        assert rk.check_card(spec._replace(target=target)) == (
+            target is not long_sw)  # its summary is mapped in torch
+    assert rk._params(banks, 0, spec._replace(
+        target=tw.targets.smile())).target == rk.EXTERNAL
+    assert rk._target_id(tw.targets.stock_watson(), 756) == 2
+    assert rk._target_id(long_sw, 756) == rk.EXTERNAL
+
+
+def _counted_target(calls):
+    """funnel(D) as a user target (no ``kernel_id``) whose ``logp_grad``
+    records each query it is handed."""
+    base = tw.targets.funnel(D)
+
+    def logp_grad(q):
+        calls.append(q.data_ptr())
+        return base.logp_grad(q)
+
+    return tw.Target(base._logp, D, logp_grad=logp_grad)
+
+
+@pytest.mark.parametrize("micro_unroll", [1, 4])
+def test_segment_schedule_calls_the_gradient_between_launches(micro_unroll):
+    """The external route's host loop for one period: ``16 *
+    micro_unroll + 1`` segment launches, one gradient call on the query
+    tensor between each two, and each launch after the first handed the
+    result of the call before it (the launch itself is recorded here:
+    the kernel runs on the card)."""
+    calls, seen = [], []
+    target = _counted_target(calls)
+    banks = rk.pack(_state())
+    spec = rk.RoundSpec(target=target, cfg=tw.WalnutsConfig(m=M),
+                        warmup=None, stop_mode="per_chain", num_iter=10,
+                        micro_unroll=micro_unroll, seed=1)
+    params = rk._params(banks, 0, spec)
+    assert params.target == rk.EXTERNAL
+
+    def launch():
+        seen.append((params.seg, params.xq, params.xlp, params.xg))
+
+    before = rk.segment_launches
+    rk._run_segments(banks, params, spec, launch)
+    last = 16 * micro_unroll
+    assert rk.segment_launches - before == last + 1
+    assert [s[0] for s in seen] == list(range(last + 1))
+    assert len(calls) == last and set(calls) == {seen[0][1]}
+    assert all(s[1] == seen[0][1] for s in seen)  # one query tensor
+    assert seen[0][2:] == (None, None)
+    assert all(s[2] and s[3] for s in seen[1:])
+
+
+def test_gradient_exchange_checks_what_torch_returns():
+    """What the segment kernel reads from torch: ``lp [C]`` and ``g [C,
+    D]`` in the query's dtype on its device; anything else raises, a
+    strided result is copied into a contiguous one."""
+    q = torch.from_numpy(Q0)
+    good = tw.targets.funnel(D)
+    lp, g = rk._gradient(good, q)
+    want = good.logp_grad(q)
+    assert torch.equal(lp, want[0]) and torch.equal(g, want[1])
+    strided = tw.Target(good._logp, D, logp_grad=lambda x: (
+        good.logp_grad(x)[0], good.logp_grad(x)[1].T.contiguous().T))
+    lp2, g2 = rk._gradient(strided, q)
+    assert g2.is_contiguous() and torch.equal(g2, want[1])
+    for name, fn in (
+            ("dtype", lambda x: (lp, g.float())),
+            ("shape", lambda x: (lp[:, None], g)),
+            ("shape", lambda x: (lp, g[:, :-1])),
+            ("type", lambda x: (lp.numpy(), g))):
+        bad = tw.Target(good._logp, D, logp_grad=fn, name=name)
+        with pytest.raises(TypeError, match=f"{name}.logp_grad"):
+            rk._gradient(bad, q)
+    # an autograd target under no_grad still gets its gradient
+    with torch.no_grad():
+        lp3, g3 = rk._gradient(tw.Target(good._logp, D), q)
+    torch.testing.assert_close(g3, want[1], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(lp3, want[0], rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("stop_mode,ring_rows", [

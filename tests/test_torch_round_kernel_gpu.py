@@ -202,16 +202,15 @@ def test_summary_the_kernel_does_not_store_runs_in_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-def test_target_without_a_fused_gradient_raises_and_runs_plain_by_name(
+def test_target_without_a_fused_gradient_runs_in_the_kernel_and_plain_by_name(
         cuda_device):
-    """``run_walnuts_fused`` raises on the card for a target the kernel
-    lacks, before any launch; ``run_walnuts_fused_plain`` runs it there
-    and equals the CPU run."""
-    before = rk.launches
-    with pytest.raises(NotImplementedError, match="run_walnuts_fused_plain"):
-        mk.run_walnuts_fused(1, torch.zeros(4, 2), 0.3, 0.2,
-                             target=tw.targets.smile(),
-                             cfg=tw.WalnutsConfig(m=4), num_iter=2,
-                             device=cuda_device)
+    """``run_walnuts_fused`` runs a target the kernel does not fuse
+    through its external-gradient segments on the card, and
+    ``run_walnuts_fused_plain`` runs it in the plain twin there; both
+    equal the CPU run."""
+    fused, segs = rk.launches, rk.segment_launches
+    _run_pair(mk.run_walnuts_fused, tw.targets.smile(), cuda_device)
+    assert rk.launches == fused and rk.segment_launches > segs
+    segs = rk.segment_launches
     _run_pair(mk.run_walnuts_fused_plain, tw.targets.smile(), cuda_device)
-    assert rk.launches == before
+    assert rk.launches == fused and rk.segment_launches == segs

@@ -14,7 +14,9 @@ round body (sections A-G of the JAX round body), the ring flush, the
 pooled warmup consensus and the public entry :func:`run_walnuts_fused`.
 Rounds run sixteen at a time, one flush period per call of
 :func:`..round_kernel.run_rounds`: the hand-written CUDA kernel on the
-card, the plain round body here on the CPU.
+card (one launch, or for a target without a fused gradient one launch
+per stretch between two gradient points, with the target's torch
+gradient between them), the plain round body here on the CPU.
 
 Randomness is the JAX engine's ``rng="hash"`` stream: every draw is a
 splitmix32 hash of (seed, global chain id, absolute round, purpose),
@@ -980,14 +982,17 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
     ``mk_state`` and ``adapt_state`` are moved to ``device``, the card
     unless the caller passes ``device="cpu"``; without a card the
     default raises.  On the card every round runs in the hand-written
-    kernel, which implements the targets with a ``kernel_id`` (funnel,
-    std_gauss, Stock-Watson up to 256 rows) and stores the identity,
+    kernel, for every target.  The targets with a ``kernel_id`` (funnel,
+    std_gauss, Stock-Watson up to 256 rows) have their gradient fused
+    into it; any other target runs its external-gradient instantiation,
+    ``16 * micro_unroll + 1`` launches per flush period with one call of
+    the target's own ``logp_grad`` on all chains between each two
+    (``round_kernel._run_segments``).  The kernel stores the identity,
     :func:`..targets.analytic.omega_sumsq` and Stock-Watson summaries
     itself; any other summary is mapped in torch over the positions the
-    kernel draws (``round_kernel.defer_summary``).  Any other target
-    raises ``NotImplementedError`` on the card:
-    :func:`run_walnuts_fused_plain` runs it there by name.  On the CPU
-    the plain twin, the plain round body, runs.
+    kernel draws (``round_kernel.defer_summary``).
+    :func:`run_walnuts_fused_plain` runs the plain twin on the card by
+    name.  On the CPU the plain twin, the plain round body, runs.
 
     ``stop_mode``: ``"per_chain"`` (every chain stops at ``num_iter``
     draws), ``"total"`` (until ``C * num_iter`` draws exist; rings keep

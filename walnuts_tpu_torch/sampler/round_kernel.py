@@ -33,15 +33,25 @@ are one aligned block; the slabs as ``[C, S, D]`` and the rings in the
 engine's ``[R, C, dg]`` / ``[Rd, C, 24]`` layout.  The P2 warmup
 estimators ride as extra rows.
 
+Every target runs through the kernel on the card.  A target without a
+fused gradient (any target without a ``kernel_id``: the other analytic
+targets, every target a user writes, and a Stock-Watson series longer
+than ``SW_TMAX``) runs the kernel's external-gradient instantiation:
+its period is ``16 * micro_unroll + 1`` launches of one segment each,
+from one gradient point to the next, and between two launches the host
+calls the target's own ``logp_grad`` once, on every chain's position at
+that point (:func:`_run_segments`).  The JAX round body evaluates the
+gradient once per micro step for every chain, masked or not, so the
+points are the same for all chains and the result is the plain twin's.
+:data:`segment_launches` counts those launches.  Nothing falls back to
+the plain twin: ``megakernel.run_walnuts_fused_plain(device=...)`` runs
+it on the card only when the caller asks for it by name.
+
 The kernel stores three summaries itself (the identity, ``omega_sumsq``
-and Stock-Watson's).  For any other summary of a kernel target, the
-kernel stores the drawn positions in a two-row staging ring and torch
-maps the user's summary over the rows each period staged
-(:func:`defer_summary`, :func:`summarize`).  A target without a fused
-gradient, or a Stock-Watson series longer than ``SW_TMAX``, raises on
-CUDA banks (:func:`check_card`, before any launch); the plain twin runs
-such targets on the card only when the caller asks for it by name
-(``megakernel.run_walnuts_fused_plain(device=...)``).
+and Stock-Watson's, the last for the series it fuses).  For any other
+summary, the kernel stores the drawn positions in a two-row staging ring
+and torch maps the user's summary over the rows each period staged
+(:func:`defer_summary`, :func:`summarize`).
 """
 
 import copy
@@ -202,13 +212,15 @@ class RoundSpec(NamedTuple):
     c0: int = 0
 
 
-launches = 0  # CUDA kernel launches made by run_rounds in this process
+launches = 0  # fused-gradient kernel launches made by run_rounds
+segment_launches = 0  # external-gradient segment launches (see _run_segments)
 
 
 def run_rounds(b: Banks, n: int, spec: RoundSpec):
     """Advance every chain by one flush period (rounds ``n .. n+15``)
-    and flush the rings, in place.  CUDA banks launch the kernel (or
-    raise); CPU banks run the plain twin."""
+    and flush the rings, in place.  CUDA banks launch the kernel (one
+    launch, or the external-gradient segments) or raise; CPU banks run
+    the plain twin."""
     if b.vx.is_cuda:
         _launch(b, n, spec)
     elif b.vx.device.type == "cpu":
@@ -250,15 +262,15 @@ class _RoundParams(ctypes.Structure):
             "proto_d", "stop_mode", "num_iter", "micro_unroll", "nbase",
             "seed", "warmup", "adapt_h", "adapt_delta", "pooled",
             "warmup_iter", "target", "gen", "precision", "sw_T",
-            "sw_proper", "c0")])
+            "sw_proper", "c0", "seg")]
+        + [(f, ctypes.c_void_p) for f in ("xq", "xlp", "xg")])
 
 
+# the targets whose gradient the kernel fuses, by kernel_id
 KERNEL_TARGETS = {"funnel": 0, "std_gauss": 1, "stock_watson": 2}
-SW_TMAX = 256  # Stock-Watson series the kernel takes: 8 indices per lane
-
-
-PLAIN_ON_CARD = ("megakernel.run_walnuts_fused_plain(..., device=...) runs "
-                 "its plain twin on the card")
+EXTERNAL = 3  # the instantiation that takes any target's torch gradient
+INSTANTIATIONS = dict(KERNEL_TARGETS, external=EXTERNAL)
+SW_TMAX = 256  # Stock-Watson series the kernel fuses: 8 indices per lane
 
 
 def _summary_id(target):
@@ -268,7 +280,7 @@ def _summary_id(target):
         return 0
     if gen is omega_sumsq:
         return 1
-    if (target.kernel_id == "stock_watson"
+    if (_target_id(target, target.dim) == KERNEL_TARGETS["stock_watson"]
             and getattr(gen, "kernel_summary", None) == "stock_watson"):
         return 2
     return None
@@ -286,37 +298,25 @@ def _gen_id(target):
         "ROADMAP queue 2")
 
 
-def _target_id(target):
-    if target.kernel_id not in KERNEL_TARGETS:
-        raise NotImplementedError(
-            f"the CUDA round kernel implements the funnel, std_gauss and "
-            f"stock_watson targets, not {target.name!r}; other targets wait "
-            f"for a kernel path of their own (ROADMAP queue 2), and "
-            f"{PLAIN_ON_CARD}")
-    return KERNEL_TARGETS[target.kernel_id]
-
-
-def _sw_rows(target, D):
-    T = target.kernel_args["T"]
-    if not 3 <= T <= SW_TMAX or 3 * T != D:
-        raise NotImplementedError(
-            f"the CUDA round kernel runs Stock-Watson series of 3 to "
-            f"{SW_TMAX} rows at D = 3T; got T = {T}, D = {D}; "
-            f"{PLAIN_ON_CARD}")
-    return T
+def _target_id(target, D):
+    """The instantiation that runs ``target`` at dimension ``D``: its
+    fused gradient's id (Stock-Watson's for series of 3 to ``SW_TMAX``
+    rows at D = 3T), else ``EXTERNAL``."""
+    tid = KERNEL_TARGETS.get(target.kernel_id, EXTERNAL)
+    if tid == KERNEL_TARGETS["stock_watson"]:
+        T = target.kernel_args["T"]
+        if not (3 <= T <= SW_TMAX and 3 * T == D):
+            return EXTERNAL
+    return tid
 
 
 def check_card(spec: RoundSpec) -> bool:
-    """Whether the kernel runs ``spec`` by itself (True), or needs its
-    summary mapped in torch (False: :func:`defer_summary`).  Raises
-    ``NotImplementedError`` for a target without a fused gradient or a
-    Stock-Watson series the kernel does not take; decided from the spec
-    alone, before any launch."""
-    tgt = spec.target
-    _target_id(tgt)
-    if tgt.kernel_id == "stock_watson":
-        _sw_rows(tgt, tgt.dim)
-    return _summary_id(tgt) is not None
+    """Whether the kernel stores ``spec``'s summary itself (True), or
+    needs it mapped in torch (False: :func:`defer_summary`); decided
+    from the spec alone, before any launch.  Every target runs on the
+    card: with its fused gradient, or through the external-gradient
+    segments (:func:`_target_id`)."""
+    return _summary_id(spec.target) is not None
 
 
 def defer_summary(st: MState, target):
@@ -360,9 +360,9 @@ def summarize(ring, stage, it0, it1, target, stop_mode: str, num_iter: int):
 
 def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
     tgt, cfg, wu = spec.target, spec.cfg, spec.warmup
-    tgt_id = _target_id(tgt)
     NF, C = b.sf.shape
     S, D = b.slab_q.shape[1:]
+    tgt_id = _target_id(tgt, D)
     dg = b.samples.shape[2]
     dtype = b.vx.dtype
     proto_d, min_c, max_c = protocol(cfg)
@@ -372,8 +372,8 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
     k = D - 1
     s_sc = cfg.step_size_rand_scale
     y_ptr, sw_T, sw_proper = None, 0, 0
-    if tgt.kernel_id == "stock_watson":
-        sw_T, sw_proper = _sw_rows(tgt, D), int(tgt.kernel_args["proper"])
+    if tgt_id == KERNEL_TARGETS["stock_watson"]:
+        sw_T, sw_proper = tgt.kernel_args["T"], int(tgt.kernel_args["proper"])
         y_ptr = tgt.kernel_args["y"](b.vx).data_ptr()
     n_inn = 3 * sw_T - 4
     return _RoundParams(
@@ -424,21 +424,72 @@ def _launch(b: Banks, n: int, spec: RoundSpec):
 
     _check(b)
     params = _params(b, n, spec)
-    lib = _build.load()
-    fn = lib.walnuts_round_launch
+    fn = _build.load().walnuts_round_launch
     fn.argtypes = [ctypes.POINTER(_RoundParams), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(b.vx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ctypes.byref(params), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"round kernel launch failed: cudaError {err}")
-    launches += 1
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+        def launch():
+            err = fn(ctypes.byref(params), stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"round kernel launch failed (target {params.target}, "
+                    f"segment {params.seg}): cudaError {err}")
+
+        if params.target == EXTERNAL:
+            _run_segments(b, params, spec, launch)
+        else:
+            launch()
+            launches += 1
+
+
+def _run_segments(b: Banks, params: _RoundParams, spec: RoundSpec, launch):
+    """One period of the external-gradient instantiation: ``16 *
+    micro_unroll + 1`` segment launches, and between two of them one
+    call of ``spec.target.logp_grad`` on the query tensor ``[C, D]``,
+    which the previous segment filled with every chain's position at
+    the period's next gradient point.  The next segment reads its
+    result.  All of it is queued on the current stream; nothing waits
+    for the card."""
+    global segment_launches
+    C, D = b.vx.shape[0], b.slab_q.shape[2]
+    query = b.vx.new_empty((C, D))
+    params.xq = query.data_ptr()
+    last = FLUSH_EVERY * spec.micro_unroll
+    for seg in range(last + 1):
+        params.seg = seg
+        launch()
+        segment_launches += 1
+        if seg < last:
+            # lp and g stay referenced until the next launch is queued
+            lp, g = _gradient(spec.target, query)
+            params.xlp, params.xg = lp.data_ptr(), g.data_ptr()
+
+
+def _gradient(target, q):
+    """``target.logp_grad(q)`` as the segment kernel reads it: ``lp
+    [C]`` and ``g [C, D]`` of ``q``'s dtype on ``q``'s device, raising
+    on anything else (nothing is cast); a strided result is copied into
+    a contiguous one.  An autograd target's gradient is taken whatever
+    the caller's grad mode (``Target.logp_grad``)."""
+    lp, g = target.logp_grad(q)
+    C, D = q.shape
+    for name, x, shape in (("log density", lp, (C,)),
+                           ("gradient", g, (C, D))):
+        if not isinstance(x, torch.Tensor) or x.dtype != q.dtype or \
+                x.device != q.device or tuple(x.shape) != shape:
+            got = (f"{tuple(x.shape)} {x.dtype} on {x.device}"
+                   if isinstance(x, torch.Tensor) else type(x).__name__)
+            raise TypeError(
+                f"{target.name}.logp_grad: want the {name} as {shape} "
+                f"{q.dtype} on {q.device}, got {got}")
+    return lp.contiguous(), g.contiguous()
 
 
 def kernel_attributes(dtype, target: str, D: int) -> dict:
-    """What the kernel instantiation that runs ``dtype``, ``target`` (a
-    ``KERNEL_TARGETS`` key) and dimension ``D`` was built with, from the
+    """What the kernel instantiation that runs ``dtype``, ``target`` (an
+    ``INSTANTIATIONS`` key) and dimension ``D`` was built with, from the
     CUDA runtime on the current device: registers and local (stack)
     bytes per thread, static shared bytes per block, resident blocks
     and warps per SM, and the trial-vector values per lane (``dpl``, 0
@@ -450,7 +501,7 @@ def kernel_attributes(dtype, target: str, D: int) -> dict:
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
-    err = fn(0 if dtype == torch.float64 else 1, KERNEL_TARGETS[target], D,
+    err = fn(0 if dtype == torch.float64 else 1, INSTANTIATIONS[target], D,
              out)
     if err != 0:
         raise RuntimeError(f"round kernel attributes: cudaError {err}")

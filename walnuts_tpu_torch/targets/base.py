@@ -12,7 +12,10 @@ with its gradient fused into the leapfrog step (``"funnel"``,
 one parameter (its ``scale``) and ``kernel_args`` holds the parameters
 of a target that has more (Stock-Watson's series length ``T``, its
 ``proper`` flag and the series ``y``).  A target without a
-``kernel_id`` runs on the plain engine only.
+``kernel_id`` runs through the same kernel on the card, in its
+external-gradient instantiation: the host calls ``logp_grad`` on every
+chain's position at each gradient point, between two launches
+(``sampler/round_kernel.py``).
 """
 
 from typing import Callable, Optional
