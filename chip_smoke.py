@@ -37,11 +37,14 @@ function), which the kernel stages for torch to map, and ``smile``, a
 target without a fused gradient.  Phase 11 runs such targets through
 the kernel's external-gradient instantiation (a period is ``16 *
 micro_unroll + 1`` segment launches with the target's torch
-``logp_grad`` between them): 11a holds it against the plain twin in
-float64 for every analytic target without a fused gradient, a user's
-``logp`` and Stock-Watson at T = 300, 11b runs the main path's timed
-phase with funnel(101) handed over as a user's target, with its speed
-and the split of a period.
+``logp_grad`` between them, captured once as a CUDA graph and
+replayed): 11a holds the graphed periods bit for bit to the same
+segments run eagerly, then against the plain twin in float64, for
+every analytic target without a fused gradient, a user's ``logp`` and
+Stock-Watson at T = 300; 11b runs the main path's timed phase with
+funnel(101) handed over as a user's target, with its speed, the graphed
+and eager ms per period, and the split of a period into micro-step
+segments, round-boundary segments and torch's kernels.
 
 Run from the repository root, with no arguments:
 
@@ -60,6 +63,7 @@ line after the device line is the card's name and power limit as
 prints them.
 """
 
+import functools
 import json
 import re
 import subprocess
@@ -179,6 +183,13 @@ def phase_build(_build, rk):
               for D in (32, 64, 96, 128, 160)]  # DPL 1-4, then 0 (D > 128)
     shapes.append(("stock_watson", "2", 756))  # DPL 0 at every D
     shapes.append(("external", "3", 101))  # DPL 0 at every D
+    micro = {}  # round_kernel_micro<T>, the external micro-step segments
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '_Z18round_kernel_microI"
+                      r"(f|d)E", line)
+        if m:
+            used = next(x for x in lines[i + 1:] if "Used" in x)
+            micro[m.group(1)] = used.split(":")[1].strip()
     for prec, dtype in (("f", torch.float32), ("d", torch.float64)):
         for tgt, tid, D in shapes:
             a = rk.kernel_attributes(dtype, tgt, D)
@@ -187,6 +198,11 @@ def phase_build(_build, rk):
                 f"{ptxas.get((prec, tid, str(dpl)), 'not found')} | "
                 f"runtime {a['regs']} registers, {a['local_bytes']} "
                 f"local bytes, {a['warps_per_sm']} warps/SM")
+        a = rk.kernel_attributes(dtype, "external", 101)
+        log(f"  round_kernel_micro<{dtype}> (external micro-step "
+            f"segments): ptxas {micro.get(prec, 'not found')} | runtime "
+            f"{a['micro_regs']} registers, {a['micro_warps_per_sm']} "
+            f"warps/SM")
     main = rk.kernel_attributes(torch.float32, "funnel", 101)
     log(f"  main path (float32 funnel, D=101): {main}")
     ext = rk.kernel_attributes(torch.float32, "external", 101)
@@ -236,11 +252,13 @@ def _banks_compare(a, b, *, rtol, atol, slab_rtol=None, chains=None):
 def _pair(tw, mk, rk, dev, *, D, C, m, dtype, rounds, warmup=None,
           stop_mode="min_per_chain", num_iter=50, micro_unroll=1,
           generated=None, ring_rows=None, target=None, seed=987654,
-          q_seed=1234, h=0.4, delta=0.15, diag_rows=8):
+          q_seed=1234, h=0.4, delta=0.15, diag_rows=8, eager=False):
     """Run the same capped invocation (of funnel(D) unless ``target`` is
     given) through the kernel (one launch per period, or the
     external-gradient segments) and the plain twin; return both final
-    bank sets."""
+    bank sets.  ``eager``: run the external-gradient segments once more
+    eagerly (``round_kernel._launch(graph=False)``; not counted) and
+    require every bank bit for bit equal to the graphed run's."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(q_seed)
@@ -258,9 +276,30 @@ def _pair(tw, mk, rk, dev, *, D, C, m, dtype, rounds, warmup=None,
     torch.cuda.synchronize()
     if rk.launches + rk.segment_launches <= before:
         raise AssertionError("the kernel path made no launch")
+    if eager:
+        counted, launch = rk.segment_launches, rk._launch
+        rk._launch = functools.partial(launch, graph=False)
+        try:
+            st_e = mk.run_walnuts_fused(seed, q0, h, dl, **kw)[-1]
+        finally:
+            rk._launch, rk.segment_launches = launch, counted
+        torch.cuda.synchronize()
+        _bits_equal(rk.pack(st_k), rk.pack(st_e))
     st_p = mk.run_walnuts_fused_plain(seed, q0, h, dl, **kw)[-1]
     torch.cuda.synchronize()
     return rk.pack(st_k), rk.pack(st_p)
+
+
+def _bits_equal(a, b):
+    """Raises unless two bank sets are equal bit for bit, NaNs included."""
+    import torch
+
+    bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+    for name, x, y in zip(a._fields, a, b):
+        t = bits[x.element_size()]
+        if not torch.equal(x.view(t), y.view(t)):
+            raise AssertionError(f"bank {name}: graphed and eager segments "
+                                 "differ")
 
 
 def phase_f64(tw, mk, rk, dev):
@@ -1612,11 +1651,8 @@ def phase_card_route(tw, mk, rk, dev):
 # ---------------------------------------------------------------------------
 
 # 11b runs the main path's timed phase with funnel(101) handed over as a
-# user's target, its 300 draws per chain cut to this many: at the 22-27
-# ms per period H100 hosts took, 300 draws (8,459 periods) took 203 s
-# and the smoke 1115 s of its 1200 s; 100 draws took 80 s, the smoke
-# 903 s.
-EXT_ITERS = 60
+# user's target, at the main path's 300 draws per chain.
+EXT_ITERS = MAIN_ITERS
 
 
 def _user_logp(q):
@@ -1655,21 +1691,25 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     """Phase 11: targets without a fused gradient through the kernel's
     external-gradient instantiation (a period is ``16 * micro_unroll +
     1`` segment launches with the target's torch ``logp_grad`` between
-    them).  11a: float64, the targets of the GPU tests against the plain
-    twin on the card (integer banks equal, floats within EXACT, each
-    period's segment count checked), and one autograd target against
-    the CPU.  11b: the main path's timed phase at full width from phase
-    4's adapted chains with funnel(101) handed over as a user's target
-    (its own ``logp_grad``, no ``kernel_id``): the omega gate, grad-evals/s
-    and min-ESS/s; then per period the route's ms against the plain
-    twin's and the fused funnel kernel's in the same call, the split of
-    a period into segment kernels, torch's gradient kernels and the
-    host, the bound, and one float32 period against the twin.  Returns
-    the kernels line's entry."""
+    them, captured once as a CUDA graph and replayed).  11a: float64,
+    the targets of the GPU tests, graphed and eager bit for bit, then
+    against the plain twin on the card (integer banks equal, floats
+    within EXACT, each period's segment count checked), and one autograd
+    target against the CPU.  11b: the main path's timed phase at full
+    width from phase 4's adapted chains with funnel(101) handed over as
+    a user's target (its own ``logp_grad``, no ``kernel_id``): the omega
+    gate, grad-evals/s and min-ESS/s; then per period the graphed
+    route's ms against the eager segments', the plain twin's and the
+    fused funnel kernel's in the same call, the split of a period into
+    micro-step segments, round-boundary segments and torch's kernels
+    under torch.profiler, graphed and eager, the bound, and one float32
+    period against the twin.  No period may run eagerly for want of a
+    capture.  Returns the kernels line's entry."""
     import torch
     from walnuts_tpu_torch.diagnostics import ess
     from walnuts_tpu_torch.utils.parity import EXACT
 
+    eager0 = rk.eager_periods
     # ---- 11a ----
     C, it = 48, rk.I_FIELDS.index("it")
     pooled = tw.WarmupConfig(warmup_iter=8, pooled=True)
@@ -1693,13 +1733,14 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
         sw = target.dim == 900
         segs = rk.segment_launches
         fused = rk.launches
+        caps = rk.graph_captures
         t0 = time.perf_counter()
         a, b = _pair(tw, mk, rk, dev, D=target.dim, C=8 if sw else C,
                      m=4 if sw else 5, dtype=torch.float64, rounds=160,
                      target=target, stop_mode=stop_mode, num_iter=12,
                      micro_unroll=unroll, warmup=wu, diag_rows=4,
                      h=0.02 if sw else 0.3, delta=0.3 if sw else 0.2,
-                     seed=77)
+                     seed=77, eager=True)
         wall = time.perf_counter() - t0
         periods = -(-160 // mk.FLUSH_EVERY)
         made = rk.segment_launches - segs
@@ -1713,12 +1754,13 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
         log(f"phase 11a f64 segments == plain: {name} (D={target.dim}, "
             f"{stop_mode}, micro_unroll={unroll}, "
             f"{'pooled ' if wu and wu.pooled else ''}"
-            f"{'warmup' if wu else 'fixed tuning'}), 160 rounds: integer "
-            f"banks equal, max abs float diff {err:.3e} (rtol "
+            f"{'warmup' if wu else 'fixed tuning'}), 160 rounds: graphed "
+            f"== eager bit for bit ({rk.graph_captures - caps} capture); "
+            f"integer banks equal, max abs float diff {err:.3e} (rtol "
             f"{EXACT['rtol']:g}, atol {EXACT['atol']:g}); {made} segment "
             f"launches = {made // (mk.FLUSH_EVERY * unroll + 1)} periods x "
             f"{mk.FLUSH_EVERY * unroll + 1}; draws {int(a.si[it].sum())}; "
-            f"{wall:.2f} s for both")
+            f"{wall:.2f} s for the three runs")
     user = tw.Target(_user_logp, 3, name="user")
     q0 = 0.3 * torch.randn(C, 3, generator=torch.Generator().manual_seed(4),
                            dtype=torch.float64)
@@ -1733,6 +1775,9 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
         f"user's logp (autograd), C={C} m=5 micro_unroll=4, 160 rounds: "
         f"integer banks equal, max abs float diff {err:.3e}; draws "
         f"{int(card[3].sum())}")
+    if rk.eager_periods != eager0:
+        raise AssertionError(f"11a: {rk.eager_periods - eager0} periods ran "
+                             "eagerly for want of a capture")
 
     # ---- 11b: the timed phase with funnel(101) as a user's target ----
     C, D = MAIN_C, MAIN_D
@@ -1746,6 +1791,7 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     kw = dict(target=user, cfg=cfg, num_iter=EXT_ITERS,
               stop_mode="min_per_chain", diag_rows=8, micro_unroll=4,
               rounds=12000, device=dev)
+    caps = rk.graph_captures
     rk.launches = rk.segment_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1762,10 +1808,14 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     torch.cuda.synchronize()
     t_ext = time.perf_counter() - t0
     launches, fused = rk.segment_launches, rk.launches
+    caps = rk.graph_captures - caps
     periods = st.n // mk.FLUSH_EVERY
     if fused or launches != periods * (4 * mk.FLUSH_EVERY + 1):
         raise AssertionError(f"11b: {launches} segment launches over "
                              f"{periods} periods, {fused} fused launches")
+    if rk.eager_periods != eager0 or caps != calls:
+        raise AssertionError(f"11b: {caps} captures over {calls} calls, "
+                             f"{rk.eager_periods - eager0} eager periods")
     draws = st.samples.double()
     if tuple(draws.shape) != (EXT_ITERS, C, 2) or \
             not bool(torch.isfinite(draws).all()):
@@ -1776,10 +1826,12 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     log(f"phase 11b main path's timed phase through the segments: "
         f"funnel({D}) as a user's target, C={C} m={MAIN_M} f32 "
         f"micro_unroll=4, {EXT_ITERS} draws from phase 4's adapted chains "
-        f"in {t_ext:.2f} s over {calls} calls ({periods} periods, "
-        f"{launches} segment launches, {fused} fused launches): {grads} "
-        f"grad evals = {grads / t_ext:.1f} grad-evals/s (phase 4, the "
-        f"fused kernel: {main_run['grads'] / main_run['t_timed']:.1f}), ESS "
+        f"in {t_ext:.2f} s over {calls} calls ({periods} periods = "
+        f"{t_ext * 1e3 / periods:.4f} ms of wall each, {launches} segment "
+        f"launches, {caps} graph captures, 0 eager periods, {fused} fused "
+        f"launches): {grads} grad evals = {grads / t_ext:.1f} grad-evals/s "
+        f"(phase 4, the fused kernel: "
+        f"{main_run['grads'] / main_run['t_timed']:.1f}), ESS "
         f"{[round(float(e), 1) for e in ess_vals]}, min-ESS/s "
         f"{float(ess_vals.min()) / t_ext:.2f} (phase 4 "
         f"{float(main_run['ess'].min()) / main_run['t_timed']:.2f}), "
@@ -1787,18 +1839,21 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     if not sd_err < 0.3:
         raise AssertionError(f"11b: |sd(omega) - 3| = {sd_err:.4f} >= 0.3")
 
-    # one float32 period against the twin at this shape (not counted)
+    # one float32 period against the twin at this shape, graphed and
+    # eager bit for bit (not counted)
     counted = rk.launches, rk.segment_launches
     a, b = _pair(tw, mk, rk, dev, D=D, C=C, m=MAIN_M, dtype=torch.float32,
                  rounds=16, target=user, num_iter=EXT_ITERS, micro_unroll=4,
-                 diag_rows=8)
+                 diag_rows=8, eager=True)
     f32_err = _f32_compare(
-        rk, f"phase 11b f32/bf16 segments vs plain: funnel({D}) as a user's "
-        f"target, C={C} m={MAIN_M} min_per_chain micro_unroll=4", a, b,
+        rk, f"phase 11b f32/bf16 segments vs plain (graphed == eager bit for "
+        f"bit): funnel({D}) as a user's target, C={C} m={MAIN_M} "
+        f"min_per_chain micro_unroll=4", a, b,
         dict(rtol=1e-4, atol=1e-3, slab_rtol=2.0 ** -7))
 
-    # ms per period: the segments, the fused funnel kernel, the twin, in
-    # turns from the same banks; then the split of a period
+    # ms per period: the graphed segments, the eager segments, the fused
+    # funnel kernel, the twin, in turns from the same banks; then the
+    # split of a period, graphed and eager
     fused_tgt = tw.targets.funnel(D, generated=tw.targets.omega_sumsq)
     st0 = mk.init_state(warm.qc, warm.h_cur, warm.delta_cur, target=user,
                         cfg=cfg, warmup=None, num_iter=EXT_ITERS,
@@ -1806,51 +1861,53 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     spec = rk.RoundSpec(target=user, cfg=cfg, warmup=None,
                         stop_mode="min_per_chain", num_iter=EXT_ITERS,
                         micro_unroll=4, seed=13)
-    specs = {"segments": spec, "fused": spec._replace(target=fused_tgt),
-             "plain": spec}
+    eager = functools.partial(rk._launch, graph=False)
+    runs = {"graphed": (rk.run_rounds, spec), "eager": (eager, spec),
+            "fused": (rk.run_rounds, spec._replace(target=fused_tgt)),
+            "plain": (rk.run_rounds_plain, spec)}
 
     def timed(name, periods):
-        fn = rk.run_rounds_plain if name == "plain" else rk.run_rounds
+        fn, sp = runs[name]
         banks = rk.pack(st0)
-        fn(banks, 0, specs[name])  # warm the path
-        banks = rk.pack(st0)
+        fn(banks, 0, sp)  # warm the path (the graphed one: its capture)
+        for dst, src in zip(banks, rk.pack(st0)):
+            dst.copy_(src)
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
         for i in range(periods):
-            fn(banks, i * mk.FLUSH_EVERY, specs[name])
+            fn(banks, i * mk.FLUSH_EVERY, sp)
         e1.record()
         torch.cuda.synchronize()
+        rk.release_graphs()
         return e0.elapsed_time(e1) / periods, banks
 
-    times = {"segments": [], "fused": [], "plain": []}
-    for name in ("segments", "fused", "plain", "plain", "fused", "segments"):
+    times = {k: [] for k in runs}
+    for name in ("graphed", "eager", "fused", "plain", "plain", "fused",
+                 "eager", "graphed"):
         t_ms, banks = timed(name, 2 if name == "plain" else 16)
         times[name].append(t_ms)
-        if name == "segments":
+        if name == "graphed":
             after = banks
     ms = {k: min(v) for k, v in times.items()}
 
     from torch.profiler import ProfilerActivity, profile
-    banks = rk.pack(st0)
-    rk.run_rounds(banks, 0, spec)
-    torch.cuda.synchronize()
     n_prof = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n_prof):
-            rk.run_rounds(banks, (i + 1) * mk.FLUSH_EVERY, spec)
+    split = {}
+    for name in ("graphed", "eager"):
+        fn, sp = runs[name]
+        banks = rk.pack(st0)
+        fn(banks, 0, sp)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_prof
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    seg_ms = sum(e.self_device_time_total for e in events
-                 if "round_kernel" in e.key) / 1e3 / n_prof
-    grad_ms = sum(e.self_device_time_total for e in events
-                  if "round_kernel" not in e.key) / 1e3 / n_prof
-    grad_kernels = sum(e.count for e in events
-                       if "round_kernel" not in e.key) / n_prof
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n_prof):
+                fn(banks, (i + 1) * mk.FLUSH_EVERY, sp)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n_prof
+        rk.release_graphs()
+        split[name] = _period_split(prof, n_prof, wall)
     rk.launches, rk.segment_launches = counted
 
     points = mk.FLUSH_EVERY * 4
@@ -1858,25 +1915,66 @@ def phase_external(tw, mk, rk, dev, warm, main_run, attrs):
     exchange = points * (4 * C * D + 2 * C) * isz  # query, g: w+r; lp: w+r
     bound = _bound(rk, rk.pack(st0), after, 16, None, extra_bytes=exchange)
     log(f"phase 11b timing, funnel({D}) as a user's target, C={C} "
-        f"m={MAIN_M} f32 "
-        f"micro_unroll=4, 256 rounds from phase 4's chains (CUDA events, "
-        f"best of 2): segments {ms['segments']:.4f} ms per 16-round period "
-        f"({[round(x, 4) for x in times['segments']]}), the fused funnel "
+        f"m={MAIN_M} f32 micro_unroll=4, 256 rounds from phase 4's chains "
+        f"(CUDA events, best of 2): graphed segments {ms['graphed']:.4f} ms "
+        f"per 16-round period ({[round(x, 4) for x in times['graphed']]}), "
+        f"eager segments {ms['eager']:.4f} ms "
+        f"({[round(x, 4) for x in times['eager']]}), the fused funnel "
         f"kernel {ms['fused']:.4f} ms "
         f"({[round(x, 4) for x in times['fused']]}), the plain twin "
         f"{ms['plain']:.3f} ms ({[round(x, 3) for x in times['plain']]}); "
-        f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2]}), segments at "
-        f"{bound[0] / ms['segments']:.1%} of it; on {CARD}")
-    log(f"phase 11b split of a period under torch.profiler ({n_prof} "
-        f"periods): wall {wall:.4f} ms per period, of which the "
-        f"{points + 1} segment kernels {seg_ms:.4f} ms on the card, torch's "
-        f"gradient kernels {grad_ms:.4f} ms ({grad_kernels:.0f} kernels "
-        f"for {points} calls), the card idle "
-        f"{max(0.0, 1 - (seg_ms + grad_ms) / wall):.1%} of the wall (the "
-        f"host's share)")
-    return dict(launches=launches, max_abs_err=f32_err, ms=ms["segments"],
+        f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2]}), graphed at "
+        f"{bound[0] / ms['graphed']:.1%} of it, eager at "
+        f"{bound[0] / ms['eager']:.1%}; on {CARD}")
+    for name, sp in split.items():
+        log(f"phase 11b split of a period, {name}, under torch.profiler "
+            f"({n_prof} periods): {_split_text(sp)}; against the "
+            f"{ms[name]:.4f} ms period by CUDA events the card idles "
+            f"{max(0.0, 1 - sp['busy_ms'] / ms[name]):.1%}")
+
+    return dict(launches=launches, max_abs_err=f32_err, ms=ms["graphed"],
                 plain_ms=ms["plain"], bound_ms=bound[0], bound_by=bound[1],
                 regs=attrs["regs"], warps_per_sm=attrs["warps_per_sm"])
+
+
+def _period_split(prof, periods, wall):
+    """A profiled run of ``periods`` external-gradient periods, per
+    period, from the profiler's device time by kernel name: the
+    micro-step segments (``round_kernel_micro``), the round-boundary
+    segments (``round_kernel``: the first, the last, and each that ends
+    a round) and torch's kernels (the gradient's, and the round base's
+    fill), each with its count and ms (and mean us for the segments),
+    and the card's idle share of ``wall`` (host ms per period)."""
+    import torch
+
+    out = dict(wall_ms=wall)
+    kinds = {"micro": [0, 0.0], "boundary": [0, 0.0], "torch": [0, 0.0]}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("micro" if "round_kernel_micro" in e.key else
+                "boundary" if "round_kernel" in e.key else "torch")
+        kinds[kind][0] += e.count
+        kinds[kind][1] += e.self_device_time_total
+    for kind, (n, us) in kinds.items():
+        out.update({f"{kind}_n": n / periods, f"{kind}_ms": us / 1e3 / periods})
+        if kind != "torch":
+            out[f"{kind}_us"] = us / n if n else 0.0
+    busy = out["micro_ms"] + out["boundary_ms"] + out["torch_ms"]
+    out["busy_ms"] = busy
+    out["idle"] = max(0.0, 1 - busy / wall)
+    return out
+
+
+def _split_text(sp):
+    return (f"wall {sp['wall_ms']:.4f} ms per period, of which "
+            f"{sp['micro_n']:.0f} micro-step segments {sp['micro_ms']:.4f} "
+            f"ms ({sp['micro_us']:.2f} us each), {sp['boundary_n']:.0f} "
+            f"round-boundary segments {sp['boundary_ms']:.4f} ms "
+            f"({sp['boundary_us']:.2f} us each), torch's kernels "
+            f"{sp['torch_ms']:.4f} ms ({sp['torch_n']:.0f} kernels); the "
+            f"card busy {sp['busy_ms']:.4f} ms, idle {sp['idle']:.1%} of "
+            f"this wall")
 
 
 def _counts(x):

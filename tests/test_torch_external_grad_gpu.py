@@ -3,20 +3,24 @@ plain twin, on the card.
 
 A target without a fused gradient runs a flush period as ``16 *
 micro_unroll + 1`` segment launches with one call of the target's torch
-``logp_grad`` between each two.  Each case runs the same capped
-invocation through ``run_walnuts_fused`` (the segments) and through
+``logp_grad`` between each two, captured once as a CUDA graph and
+replayed.  Each case runs the same capped invocation through
+``run_walnuts_fused`` (the segments) and through
 ``run_walnuts_fused_plain`` (the plain round body) on the card in
 float64 and holds them to the exact contract: integer banks equal,
-floats within ``EXACT``.  The cases need a CUDA device and ``nvcc``;
-without them they skip.  The file imports neither JAX nor the JAX
-package:
+floats within ``EXACT``.  The graphed periods are held bit for bit to
+the same segments run eagerly.  The cases need a CUDA device and
+``nvcc``; without them they skip.  The file imports neither JAX nor the
+JAX package:
 
     python -m pytest --noconftest -o addopts="" -m cuda \
         tests/test_torch_external_grad_gpu.py
 """
 
+import functools
 import json
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -250,7 +254,9 @@ def test_external_route_on_the_card_matches_the_cpu(cuda_device):
 @pytest.mark.cuda
 def test_bad_gradient_raises_before_the_next_segment(cuda_device):
     """A ``logp_grad`` that returns the wrong dtype raises; nothing is
-    cast and nothing runs on the plain twin."""
+    cast and nothing runs on the plain twin.  It raises in the calls
+    that warm the target up before the period's capture, so no segment
+    was launched."""
     base = tw.targets.smile()
     bad = tw.Target(base._logp, 2, name="bad",
                     logp_grad=lambda q: tuple(x.float()
@@ -260,4 +266,157 @@ def test_bad_gradient_raises_before_the_next_segment(cuda_device):
         mk.run_walnuts_fused(1, _q0(8, 2, cuda_device), 0.3, 0.2, target=bad,
                              cfg=tw.WalnutsConfig(m=4), num_iter=2,
                              device=cuda_device)
-    assert rk.segment_launches - segs == 1
+    assert rk.segment_launches - segs == 0
+
+
+def _eager(monkeypatch):
+    """Route the external-gradient periods through the eager segments."""
+    monkeypatch.setattr(rk, "_launch", functools.partial(rk._launch,
+                                                         graph=False))
+
+
+def _banks_equal(a, b):
+    """Every bank bit for bit, NaNs included."""
+    bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+    for name, x, y in zip(rk.Banks._fields, a, b):
+        t = bits[x.element_size()]
+        assert torch.equal(x.view(t), y.view(t)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(TARGET_CASES))
+def test_graphed_periods_equal_the_eager_segments_on_gpu(cuda_device,
+                                                         monkeypatch, case,
+                                                         dtype):
+    """Each target without a fused gradient, 160 rounds (ten periods,
+    each one replay of the captured graph at its own round) against the
+    same invocation run as eager segments: every bank bit for bit, and
+    no period ran eagerly for want of a capture."""
+    make, stop_mode, unroll, warmup = TARGET_CASES[case]
+    target = make()
+    C = 48
+    q0 = _q0(C, target.dim, cuda_device).to(dtype)
+    kw = dict(target=target, cfg=tw.WalnutsConfig(m=5), num_iter=12,
+              stop_mode=stop_mode, warmup=warmup, rounds=160, diag_rows=4,
+              micro_unroll=unroll)
+    h = torch.full((C,), 0.3, dtype=dtype, device=cuda_device)
+    dl = torch.full((C,), 0.2, dtype=dtype, device=cuda_device)
+    caps, eager = rk.graph_captures, rk.eager_periods
+    graphed = mk.run_walnuts_fused(77, q0, h, dl, **kw)
+    torch.cuda.synchronize()
+    assert rk.graph_captures - caps == 1 and rk.eager_periods == eager
+    assert rk._graphs == {}  # freed when the call returned
+    with monkeypatch.context() as m:
+        _eager(m)
+        ref = mk.run_walnuts_fused(77, q0, h, dl, **kw)
+    torch.cuda.synchronize()
+    assert rk.graph_captures - caps == 1
+    assert graphed[-1].n == ref[-1].n == 160
+    _banks_equal(rk.pack(graphed[-1]), rk.pack(ref[-1]))
+    assert graphed[4] == ref[4] > 0
+
+
+@pytest.mark.cuda
+def test_replays_at_two_rounds_give_the_eager_draws_on_gpu(cuda_device):
+    """Two consecutive replays of one captured period, at rounds 0 and
+    16, against the eager segments at the same rounds: bit for bit after
+    each.  The second period from the same state at round 0 again
+    differs, so a round base frozen in the graph would fail here."""
+    target = tw.targets.smile()
+    C = 64
+    st = mk.init_state(_q0(C, 2, cuda_device), 0.3, 0.2, target=target,
+                       cfg=tw.WalnutsConfig(m=5), warmup=None, num_iter=40,
+                       diag_rows=4)
+    spec = rk.RoundSpec(target=target, cfg=tw.WalnutsConfig(m=5),
+                        warmup=None, stop_mode="per_chain", num_iter=40,
+                        micro_unroll=3, seed=21)
+    graphed, eager, frozen = rk.pack(st), rk.pack(st), rk.pack(st)
+    caps = rk.graph_captures
+    try:
+        for n in (0, 16):
+            rk.run_rounds(graphed, n, spec)
+            rk._launch(eager, n, spec, graph=False)
+            rk._launch(frozen, 0, spec, graph=False)
+            torch.cuda.synchronize()
+            _banks_equal(graphed, eager)
+        assert rk.graph_captures - caps == 1 and len(rk._graphs) == 1
+    finally:
+        rk.release_graphs()
+    assert not torch.equal(frozen.vx, eager.vx)
+
+
+def _syncing_target():
+    """``smile`` with an analytic gradient that waits for the card
+    (``.item()``), which no CUDA graph can capture."""
+    base = tw.targets.smile()
+
+    def logp_grad(q):
+        lp, g = base.logp_grad(q)
+        lp.sum().item()  # waits for the card
+        return lp, g
+
+    return tw.Target(base._logp, 2, name="syncing", logp_grad=logp_grad)
+
+
+@pytest.mark.cuda
+def test_uncapturable_target_runs_the_eager_segments_on_gpu(cuda_device,
+                                                            monkeypatch):
+    """A target whose ``logp_grad`` calls ``.item()`` fails its capture:
+    its periods run the eager segments on the same stream afterwards
+    (one warning for the target over two calls, every period counted in
+    ``eager_periods``), with the bits of the eager route."""
+    target = _syncing_target()
+    C = 32
+    q0 = _q0(C, 2, cuda_device, seed=6)
+    kw = dict(target=target, cfg=tw.WalnutsConfig(m=5), num_iter=12,
+              stop_mode="per_chain", rounds=96, diag_rows=4, micro_unroll=2)
+    eager, caps = rk.eager_periods, rk.graph_captures
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        outs = [mk.run_walnuts_fused(5, q0, 0.3, 0.2, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+    hits = [w for w in rec if "cannot be captured" in str(w.message)]
+    assert len(hits) == 1 and "syncing.logp_grad" in str(hits[0].message)
+    assert rk.eager_periods - eager == 2 * 96 // mk.FLUSH_EVERY
+    assert rk.graph_captures == caps
+    with monkeypatch.context() as m:
+        _eager(m)
+        ref = mk.run_walnuts_fused(5, q0, 0.3, 0.2, **kw)
+    torch.cuda.synchronize()
+    for out in outs:
+        _banks_equal(rk.pack(out[-1]), rk.pack(ref[-1]))
+    assert int(ref[3].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_graph_cache_follows_micro_unroll_and_run_on_gpu(cuda_device):
+    """One capture serves every period of the same banks and spec; a
+    new ``micro_unroll`` captures anew; ``run_walnuts_fused`` frees the
+    graphs it made when it returns."""
+    target = tw.targets.corr_gauss()
+    C = 32
+    st = mk.init_state(_q0(C, 2, cuda_device), 0.3, 0.2, target=target,
+                       cfg=tw.WalnutsConfig(m=5), warmup=None, num_iter=40,
+                       diag_rows=4)
+    spec = rk.RoundSpec(target=target, cfg=tw.WalnutsConfig(m=5),
+                        warmup=None, stop_mode="per_chain", num_iter=40,
+                        micro_unroll=4, seed=3)
+    banks = rk.pack(st)
+    caps, segs = rk.graph_captures, rk.segment_launches
+    try:
+        rk.run_rounds(banks, 0, spec)
+        rk.run_rounds(banks, 16, spec)
+        assert rk.graph_captures - caps == 1 and len(rk._graphs) == 1
+        rk.run_rounds(banks, 32, spec._replace(micro_unroll=2))
+        torch.cuda.synchronize()
+        assert rk.graph_captures - caps == 2 and len(rk._graphs) == 2
+        assert rk.segment_launches - segs == 2 * 65 + 33
+    finally:
+        rk.release_graphs()
+    assert rk._graphs == {}
+    mk.run_walnuts_fused(3, _q0(C, 2, cuda_device), 0.3, 0.2, target=target,
+                         cfg=tw.WalnutsConfig(m=5), num_iter=4, rounds=48,
+                         micro_unroll=4)
+    assert rk.graph_captures - caps == 3 and rk._graphs == {}

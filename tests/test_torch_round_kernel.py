@@ -173,7 +173,8 @@ def test_kernel_dispatch_rejects_what_it_does_not_implement():
     assert (params.C, params.D, params.S, params.target, params.gen) == (
         C, D, M - 2, 0, 0)
     assert params.precision == 0 and params.T_rows == 2 ** (M - 1)
-    assert params.seg == 0 and not (params.xq or params.xlp or params.xg)
+    assert params.seg == 0 and not (params.xq or params.xlp or params.xg
+                                    or params.xn)
     custom = tw.Target(tw.targets.funnel(D)._logp, D)
     params = rk._params(banks, 0, spec._replace(target=custom))
     assert (params.target, params.gen, params.sw_T) == (rk.EXTERNAL, 0, 0)
@@ -254,17 +255,232 @@ def test_segment_schedule_calls_the_gradient_between_launches(micro_unroll):
     assert params.target == rk.EXTERNAL
 
     def launch():
-        seen.append((params.seg, params.xq, params.xlp, params.xg))
+        seen.append((params.seg, params.xq, params.xlp, params.xg,
+                     params.xn))
 
     before = rk.segment_launches
-    rk._run_segments(banks, params, spec, launch)
+    rk._run_segments(banks, 0, params, spec, launch, graph=False)
     last = 16 * micro_unroll
     assert rk.segment_launches - before == last + 1
     assert [s[0] for s in seen] == list(range(last + 1))
     assert len(calls) == last and set(calls) == {seen[0][1]}
     assert all(s[1] == seen[0][1] for s in seen)  # one query tensor
-    assert seen[0][2:] == (None, None)
+    assert seen[0][2:4] == (None, None)
     assert all(s[2] and s[3] for s in seen[1:])
+    assert seen[0][4] and all(s[4] == seen[0][4] for s in seen)
+
+
+def _ext_spec(micro_unroll=4, **kw):
+    calls = []
+    return rk.RoundSpec(target=_counted_target(calls),
+                        cfg=tw.WalnutsConfig(m=M), warmup=None,
+                        stop_mode="per_chain", num_iter=10,
+                        micro_unroll=micro_unroll, seed=1)._replace(**kw)
+
+
+def test_external_params_do_not_depend_on_the_round():
+    """The external-gradient segments read the period's first round
+    from the device (``xn``), so their launch struct is the same at
+    every round and a captured period replays at any; a fused launch
+    bakes the round into ``nbase``."""
+    banks = rk.pack(_state())
+    spec = _ext_spec()
+    a, b = rk._params(banks, 0, spec), rk._params(banks, 48, spec)
+    assert a.target == rk.EXTERNAL and a.nbase == 0
+    assert bytes(a) == bytes(b)
+    fused = spec._replace(target=tw.targets.funnel(D))
+    a, b = rk._params(banks, 0, fused), rk._params(banks, 48, fused)
+    assert (a.nbase, b.nbase) == (0, 48) and bytes(a) != bytes(b)
+
+
+BANK_NAMES = rk.Banks._fields
+
+
+def _state_like(C_=C, D_=D, dtype=torch.float64):
+    q0 = torch.from_numpy(0.4 * np.random.default_rng(3).normal(
+        size=(C_, D_))).to(dtype)
+    return mk.init_state(q0, 0.4, 0.15, target=tw.targets.funnel(D_),
+                         cfg=tw.WalnutsConfig(m=M), warmup=tw.WarmupConfig(),
+                         num_iter=10)
+
+
+# what a captured period depends on, each changed alone: (banks, spec)
+KEY_CHANGES = dict(
+    {f"bank {name}": lambda b, s, name=name: (
+        b._replace(**{name: getattr(b, name).clone()}), s)
+     for name in BANK_NAMES},
+    micro_unroll=lambda b, s: (b, s._replace(micro_unroll=2)),
+    stop_mode=lambda b, s: (b, s._replace(stop_mode="total")),
+    num_iter=lambda b, s: (b, s._replace(num_iter=11)),
+    warmup=lambda b, s: (b, s._replace(warmup=tw.WarmupConfig())),
+    seed=lambda b, s: (b, s._replace(seed=2)),
+    c0=lambda b, s: (b, s._replace(c0=C)),
+    dtype=lambda b, s: (rk.pack(_state_like(dtype=torch.float32)), s),
+    C=lambda b, s: (rk.pack(_state_like(C_=C + 1)), s),
+    D=lambda b, s: (rk.pack(_state_like(D_=D + 1)), s),
+    target=lambda b, s: (b, s._replace(target=tw.Target(
+        s.target._logp, D, logp_grad=s.target._logp_grad))),
+    cfg=lambda b, s: (b, s._replace(cfg=tw.WalnutsConfig(
+        m=M, step_size_rand_scale=0.3))),
+)
+
+
+@pytest.mark.parametrize("change", list(KEY_CHANGES))
+def test_graph_key_changes_with_what_the_capture_depends_on(change):
+    """The cache key of a captured period changes with each thing the
+    captured work depends on, alone: for a change of dtype, C or D the
+    new banks' addresses are set to the old ones, so that the field
+    itself must move the key."""
+    banks, spec = rk.pack(_state()), _ext_spec()
+    base = rk._params(banks, 0, spec)
+    b2, s2 = KEY_CHANGES[change](banks, spec)
+    changed = rk._params(b2, 0, s2)
+    if change in ("dtype", "C", "D"):
+        for name in BANK_NAMES:
+            setattr(changed, name, getattr(base, name))
+    assert rk._graph_key(changed, s2.target) != rk._graph_key(
+        base, spec.target)
+
+
+def test_graph_key_ignores_the_round_and_the_state():
+    """Nothing else moves the key: not the round, not the values in the
+    banks (the pooled consensus rewrites h_cur and delta_cur between
+    periods), not a spec rebuilt equal to the first."""
+    banks, spec = rk.pack(_state()), _ext_spec()
+    key = rk._graph_key(rk._params(banks, 0, spec), spec.target)
+    banks.sf[rk.F_FIELDS.index("h_cur")] *= 1.5
+    banks.vx.add_(1.0)
+    again = rk.RoundSpec(*spec)
+    for n in (16, 4096):
+        assert rk._graph_key(rk._params(banks, n, again),
+                             again.target) == key
+
+
+class _FakeGraph:
+    """Stands in for a CUDA graph on the CPU: replay is recorded."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def replay(self):
+        self.log.append(("replay",))
+
+
+def _recorded_period(monkeypatch, spec, *, capture_fails=False):
+    """The external route's host side on CPU banks with the capture and
+    the launch recorded: returns the recording of two periods (rounds 0
+    and 16) through ``_run_segments`` with ``graph=True``, each
+    launch's exchange pointers checked against the query, the round
+    base and the gradient call before it."""
+    log, ptrs, cur = [], {}, {}
+    banks = rk.pack(_state())
+    target = spec.target
+    grad = target._logp_grad
+
+    def logp_grad(q):
+        lp, g = grad(q)
+        log.append(("grad",))
+        ptrs["q"], ptrs["lp"], ptrs["g"] = q.data_ptr(), lp, g
+        return lp, g
+
+    target._logp_grad = logp_grad
+
+    def launch():
+        params = cur["params"]
+        log.append(("launch", params.seg))
+        assert params.xq == ptrs.get("q", params.xq) and params.xn
+        if params.seg:
+            assert (params.xlp, params.xg) == (ptrs["lp"].data_ptr(),
+                                               ptrs["g"].data_ptr())
+
+    def capture(period, warm):
+        for _ in range(3):
+            warm()
+        log.append(("capture",))
+        period()
+        if capture_fails:
+            raise rk.CaptureError("operation not permitted when stream is "
+                                  "capturing")
+        return _FakeGraph(log)
+
+    monkeypatch.setattr(rk, "_capture", capture)
+    monkeypatch.setattr(rk, "kernel_attributes", lambda *a: {})
+    monkeypatch.setattr(rk, "_graphs", {})
+    for n in (0, 16):
+        cur["params"] = rk._params(banks, n, spec)
+        rk._run_segments(banks, n, cur["params"], spec, launch)
+        per = next(iter(rk._graphs.values()))
+        assert int(per.nbase) == n  # the round base, written each period
+    return log
+
+
+def _eager_log(micro_unroll):
+    last = 16 * micro_unroll
+    return [e for seg in range(last + 1)
+            for e in [("launch", seg)] + ([("grad",)] if seg < last else [])]
+
+
+@pytest.mark.parametrize("micro_unroll", [1, 4])
+def test_graph_path_captures_the_eager_order_once(monkeypatch, micro_unroll):
+    """The capture path (the CUDA graph stood in for by a recording)
+    queues the eager period's launches and gradient calls in the same
+    order, once: three gradient calls on the query warm the target up
+    before the capture and launch nothing, and each period replays the
+    graph after the host wrote its round to the device."""
+    spec = _ext_spec(micro_unroll)
+    counts = rk.segment_launches, rk.graph_captures, rk.eager_periods
+    log = _recorded_period(monkeypatch, spec)
+    warm = [("grad",)] * 3
+    assert log == warm + [("capture",)] + _eager_log(micro_unroll) + [
+        ("replay",), ("replay",)]
+    assert (rk.segment_launches - counts[0], rk.graph_captures - counts[1],
+            rk.eager_periods - counts[2]) == (2 * (16 * micro_unroll + 1),
+                                              1, 0)
+
+
+def test_failed_capture_runs_the_eager_segments(monkeypatch):
+    """A target whose capture fails runs the eager period each time (no
+    new capture is tried for the same key), warns once per target and
+    counts its periods in ``eager_periods``."""
+    spec = _ext_spec(2)
+    periods = rk.eager_periods
+    with pytest.warns(RuntimeWarning, match="cannot be captured") as rec:
+        log = _recorded_period(monkeypatch, spec, capture_fails=True)
+        rk._run_segments(rk.pack(_state()), 0,
+                         rk._params(rk.pack(_state()), 0, spec), spec,
+                         lambda: None)
+    assert len(rec) == 1 and spec.target.name in str(rec[0].message)
+    period = _eager_log(2)
+    grads = [e for e in period if e == ("grad",)]
+    tried = [("grad",)] * 3 + [("capture",)]
+    # the first key: the failed capture, then the eager periods at
+    # rounds 0 and 16; new banks: another try, then one eager period
+    assert log == tried + period * 3 + tried + grads * 2
+    assert rk.eager_periods - periods == 3
+
+
+def test_run_releases_the_period_graphs(monkeypatch):
+    """``megakernel._run`` frees every cached period graph when it
+    returns, and when it raises."""
+    monkeypatch.setattr(rk, "_graphs", {"stale": None})
+    mk.run_walnuts_fused(SEED, Q0, 0.4, 0.15, target=tw.targets.funnel(D),
+                         cfg=tw.WalnutsConfig(m=M), num_iter=2,
+                         rounds=16, device="cpu")
+    assert rk._graphs == {}
+    rk._graphs["stale"] = None
+    base, calls = tw.targets.funnel(D), []
+
+    def fails_later(q):  # the initial state's call passes, a round's not
+        calls.append(1)
+        if len(calls) > 1:
+            raise ValueError("boom")
+        return base.logp_grad(q)
+
+    with pytest.raises(ValueError, match="boom"):
+        mk.run_walnuts_fused(SEED, Q0, 0.4, 0.15, target=tw.Target(
+            base._logp, D, logp_grad=fails_later),
+            cfg=tw.WalnutsConfig(m=M), num_iter=2, rounds=16, device="cpu")
+    assert rk._graphs == {}
 
 
 def test_gradient_exchange_checks_what_torch_returns():

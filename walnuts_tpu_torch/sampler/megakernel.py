@@ -1088,27 +1088,32 @@ def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
     n = n0 = st.n
     view = round_kernel.unpack(banks, n)
     total_target = C_total * num_iter
-    while True:
-        # the stop test counts every rank's chains, before the rounds
-        # cap, so that all ranks make the same launches and collectives
-        if stop_mode == "total":
-            live = reduce_int(view.it.sum(), mesh, "sum") < total_target
-        else:
-            live = bool(reduce_int((view.it < num_iter).any(), mesh, "max"))
-        if rounds is not None:
-            live = live and n < n0 + rounds
-        if not live:
-            break
-        it0 = None if ring is None else view.it.clone()
-        run_period(banks, n, spec)
-        if ring is not None:
-            round_kernel.summarize(ring, view.samples, it0, view.it, target,
-                                   stop_mode, num_iter)
-        n += FLUSH_EVERY
-        if warmup is not None and warmup.pooled:
-            h_cur, delta_cur = pooled_consensus(view, warmup, mesh)
-            view.h_cur.copy_(h_cur)
-            view.delta_cur.copy_(delta_cur)
+    try:
+        while True:
+            # the stop test counts every rank's chains, before the rounds
+            # cap, so that all ranks make the same launches and collectives
+            if stop_mode == "total":
+                live = reduce_int(view.it.sum(), mesh, "sum") < total_target
+            else:
+                live = bool(reduce_int((view.it < num_iter).any(), mesh,
+                                       "max"))
+            if rounds is not None:
+                live = live and n < n0 + rounds
+            if not live:
+                break
+            it0 = None if ring is None else view.it.clone()
+            run_period(banks, n, spec)
+            if ring is not None:
+                round_kernel.summarize(ring, view.samples, it0, view.it,
+                                       target, stop_mode, num_iter)
+            n += FLUSH_EVERY
+            if warmup is not None and warmup.pooled:
+                h_cur, delta_cur = pooled_consensus(view, warmup, mesh)
+                view.h_cur.copy_(h_cur)
+                view.delta_cur.copy_(delta_cur)
+    finally:
+        # the external-gradient periods' CUDA graphs hold these banks
+        round_kernel.release_graphs()
     st = round_kernel.unpack(banks, n)
     if ring is not None:
         st = st._replace(samples=ring, pgen0=target.generated(st.pgen0),

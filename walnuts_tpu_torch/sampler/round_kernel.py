@@ -38,14 +38,20 @@ fused gradient (any target without a ``kernel_id``: the other analytic
 targets, every target a user writes, and a Stock-Watson series longer
 than ``SW_TMAX``) runs the kernel's external-gradient instantiation:
 its period is ``16 * micro_unroll + 1`` launches of one segment each,
-from one gradient point to the next, and between two launches the host
-calls the target's own ``logp_grad`` once, on every chain's position at
-that point (:func:`_run_segments`).  The JAX round body evaluates the
+from one gradient point to the next, and between two launches the
+target's own ``logp_grad`` runs once, on every chain's position at that
+point (:func:`_run_segments`).  The JAX round body evaluates the
 gradient once per micro step for every chain, masked or not, so the
 points are the same for all chains and the result is the plain twin's.
-:data:`segment_launches` counts those launches.  Nothing falls back to
-the plain twin: ``megakernel.run_walnuts_fused_plain(device=...)`` runs
-it on the card only when the caller asks for it by name.
+The host queues a period's launches and torch calls once, captured as a
+CUDA graph, and replays that graph for every period of the same banks
+and spec; the kernel reads the period's first round from a device int32
+that the host writes before each replay.  A ``logp_grad`` that cannot
+be captured (it waits for the card, e.g. through ``.item()``) runs the
+same segments eagerly, with a warning.  :data:`segment_launches` counts
+the segment launches.  Nothing falls back to the plain twin:
+``megakernel.run_walnuts_fused_plain(device=...)`` runs it on the card
+only when the caller asks for it by name.
 
 The kernel stores three summaries itself (the identity, ``omega_sumsq``
 and Stock-Watson's, the last for the series it fuses).  For any other
@@ -57,6 +63,8 @@ and torch maps the user's summary over the rows each period staged
 import copy
 import ctypes
 import math
+import warnings
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -214,6 +222,9 @@ class RoundSpec(NamedTuple):
 
 launches = 0  # fused-gradient kernel launches made by run_rounds
 segment_launches = 0  # external-gradient segment launches (see _run_segments)
+graph_captures = 0  # periods of segments captured as a CUDA graph
+eager_periods = 0  # periods run eagerly: the target's logp_grad was not
+#                    capturable
 
 
 def run_rounds(b: Banks, n: int, spec: RoundSpec):
@@ -263,7 +274,7 @@ class _RoundParams(ctypes.Structure):
             "seed", "warmup", "adapt_h", "adapt_delta", "pooled",
             "warmup_iter", "target", "gen", "precision", "sw_T",
             "sw_proper", "c0", "seg")]
-        + [(f, ctypes.c_void_p) for f in ("xq", "xlp", "xg")])
+        + [(f, ctypes.c_void_p) for f in ("xq", "xlp", "xg", "xn")])
 
 
 # the targets whose gradient the kernel fuses, by kernel_id
@@ -359,6 +370,9 @@ def summarize(ring, stage, it0, it1, target, stop_mode: str, num_iter: int):
 
 
 def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
+    """The launch struct of a period from round ``n``.  ``EXTERNAL``
+    leaves ``nbase`` at 0 and reads the round from ``xn`` on the device
+    (:func:`_run_segments`), so its struct does not depend on ``n``."""
     tgt, cfg, wu = spec.target, spec.cfg, spec.warmup
     NF, C = b.sf.shape
     S, D = b.slab_q.shape[1:]
@@ -385,7 +399,8 @@ def _params(b: Banks, n: int, spec: RoundSpec) -> _RoundParams:
         C, D, S, dg, b.samples.shape[0], b.diags.shape[0],
         2 ** (cfg.m - 1), min_c, max_c, int(proto_d),
         STOP_MODES.index(spec.stop_mode), spec.num_iter, spec.micro_unroll,
-        n, spec.seed, int(wu is not None), int(bool(wu and wu.adapt_h)),
+        0 if tgt_id == EXTERNAL else n, spec.seed, int(wu is not None),
+        int(bool(wu and wu.adapt_h)),
         int(bool(wu and wu.adapt_delta)), int(bool(wu and wu.pooled)),
         wu.warmup_iter if wu else 0,
         tgt_id, _gen_id(tgt),
@@ -418,7 +433,14 @@ def _check(b: Banks):
             raise ValueError(f"bank {name} must be contiguous")
 
 
-def _launch(b: Banks, n: int, spec: RoundSpec):
+class LaunchError(RuntimeError):
+    """The CUDA runtime refused a launch of the round kernel."""
+
+
+def _launch(b: Banks, n: int, spec: RoundSpec, graph: bool = True):
+    """One period on CUDA banks: one launch of a fused-gradient
+    instantiation, or the external-gradient segments (graphed unless
+    ``graph`` is False, which runs them eagerly)."""
     global launches
     from .. import _build
 
@@ -428,43 +450,168 @@ def _launch(b: Banks, n: int, spec: RoundSpec):
     fn.argtypes = [ctypes.POINTER(_RoundParams), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(b.vx.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
         def launch():
-            err = fn(ctypes.byref(params), stream)
+            # the current stream: torch's capture stream under a capture
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(ctypes.byref(params), ctypes.c_void_p(stream))
             if err != 0:
-                raise RuntimeError(
+                raise LaunchError(
                     f"round kernel launch failed (target {params.target}, "
                     f"segment {params.seg}): cudaError {err}")
 
         if params.target == EXTERNAL:
-            _run_segments(b, params, spec, launch)
+            _run_segments(b, n, params, spec, launch, graph)
         else:
             launch()
             launches += 1
 
 
-def _run_segments(b: Banks, params: _RoundParams, spec: RoundSpec, launch):
-    """One period of the external-gradient instantiation: ``16 *
-    micro_unroll + 1`` segment launches, and between two of them one
-    call of ``spec.target.logp_grad`` on the query tensor ``[C, D]``,
-    which the previous segment filled with every chain's position at
-    the period's next gradient point.  The next segment reads its
-    result.  All of it is queued on the current stream; nothing waits
-    for the card."""
-    global segment_launches
+class _Period(NamedTuple):
+    """A period of external-gradient segments as the cache keeps it: its
+    CUDA graph (None where the target's ``logp_grad`` could not be
+    captured: the segments then run eagerly), and the query and round
+    base tensors whose addresses the graph holds."""
+    graph: Optional[object]
+    query: torch.Tensor
+    nbase: torch.Tensor
+    target: object  # held, so that the key's id(target) stays its own
+
+
+_graphs = {}  # _graph_key -> _Period; emptied by release_graphs
+_warned = weakref.WeakSet()  # targets warned of a failed capture
+
+
+def _graph_key(params: _RoundParams, target):
+    """What a captured period depends on: every field of its launch
+    struct (the banks' addresses; C, D and the dtype; the config's
+    constants and the rings' shapes; micro_unroll, stop_mode, num_iter,
+    the warmup, seed and c0), which for ``EXTERNAL`` holds no round,
+    and the target, by identity.  ``params`` is fresh from
+    :func:`_params` (segment 0, no exchange pointers)."""
+    return bytes(params), id(target)
+
+
+def release_graphs():
+    """Free every cached period graph and its memory pool
+    (``megakernel._run`` calls this when it returns)."""
+    _graphs.clear()
+
+
+def _run_segments(b: Banks, n: int, params: _RoundParams, spec: RoundSpec,
+                  launch, graph: bool = True):
+    """One period of the external-gradient instantiation from round
+    ``n`` (:func:`_queue_period`).  With ``graph``, the period's work is
+    captured once per :func:`_graph_key` and replayed; the host writes
+    ``n`` to the device round base before each replay.  A target whose
+    ``logp_grad`` cannot be captured runs the same work eagerly (a
+    warning once per target; :data:`eager_periods`).  Nothing waits for
+    the card."""
+    global segment_launches, eager_periods
     C, D = b.vx.shape[0], b.slab_q.shape[2]
-    query = b.vx.new_empty((C, D))
-    params.xq = query.data_ptr()
+    if graph:
+        key = _graph_key(params, spec.target)
+        per = _graphs.get(key)
+        if per is None:
+            per = _graphs[key] = _capture_period(b, params, spec, launch)
+    else:
+        per = _Period(None, b.vx.new_empty((C, D)),
+                      torch.empty(1, dtype=torch.int32, device=b.vx.device),
+                      spec.target)
+    per.nbase.fill_(n)
+    if per.graph is not None:
+        per.graph.replay()
+    else:
+        _queue_period(params, spec, per.query, per.nbase, launch)
+        if graph:  # its capture failed
+            eager_periods += 1
+    segment_launches += FLUSH_EVERY * spec.micro_unroll + 1
+
+
+def _queue_period(params: _RoundParams, spec: RoundSpec, query, nbase,
+                  launch):
+    """Queue one period on the current stream: ``16 * micro_unroll + 1``
+    segment launches, and between two of them one call of
+    ``spec.target.logp_grad`` on ``query [C, D]``, which the previous
+    segment filled with the positions at the period's next gradient
+    point.  The next segment reads its result; the kernel reads the
+    period's first round from ``nbase``."""
+    params.xq, params.xn = query.data_ptr(), nbase.data_ptr()
+    params.xlp = params.xg = None
     last = FLUSH_EVERY * spec.micro_unroll
     for seg in range(last + 1):
         params.seg = seg
         launch()
-        segment_launches += 1
         if seg < last:
             # lp and g stay referenced until the next launch is queued
             lp, g = _gradient(spec.target, query)
             params.xlp, params.xg = lp.data_ptr(), g.data_ptr()
+
+
+def _capture_period(b: Banks, params: _RoundParams, spec: RoundSpec,
+                    launch) -> _Period:
+    """Capture one period of :func:`_queue_period` as a CUDA graph, on
+    a query and round base allocated first; the query starts as the
+    chains' trial positions.  No segment runs, so no chain moves.  A
+    capture that fails gives a period without a graph (a warning once
+    per target)."""
+    global graph_captures
+    C, D = b.vx.shape[0], b.slab_q.shape[2]
+    query = b.vx[:, V_FIELDS.index("qt"), :D].contiguous()
+    nbase = torch.zeros(1, dtype=torch.int32, device=b.vx.device)
+    kernel_attributes(b.vx.dtype, "external", D)  # loads both entries
+    try:
+        graph = _capture(
+            lambda: _queue_period(params, spec, query, nbase, launch),
+            lambda: _gradient(spec.target, query))
+        graph_captures += 1
+    except CaptureError as e:
+        graph = None
+        if spec.target not in _warned:
+            _warned.add(spec.target)
+            warnings.warn(
+                f"{spec.target.name}.logp_grad cannot be captured in a CUDA "
+                f"graph ({e}); its periods run the same segments eagerly",
+                RuntimeWarning)
+    return _Period(graph, query, nbase, spec.target)
+
+
+class CaptureError(RuntimeError):
+    """A period's work could not be captured as a CUDA graph."""
+
+
+def _capture(period, warm):
+    """``period()`` (which queues work on the current stream) captured
+    as a CUDA graph on a side stream, after three calls of ``warm()``
+    there, so that autograd and the caching allocator set up outside
+    the capture.  A failed capture raises :class:`CaptureError` (a
+    launch error, and whatever ``warm`` raises, as they are), with the
+    capture ended and the caller's stream current and ordered after the
+    side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                warm()
+            try:
+                graph.capture_begin()
+                try:
+                    period()
+                finally:
+                    graph.capture_end()
+            except RuntimeError as e:
+                chain = [e]  # e, and the errors it was raised during
+                while chain[-1].__context__ is not None:
+                    chain.append(chain[-1].__context__)
+                for x in chain:
+                    if isinstance(x, LaunchError):
+                        raise x
+                raise CaptureError(str(chain[-1])) from e
+    finally:
+        torch.cuda.current_stream().wait_stream(side)
+    return graph
 
 
 def _gradient(target, q):
@@ -493,19 +640,25 @@ def kernel_attributes(dtype, target: str, D: int) -> dict:
     CUDA runtime on the current device: registers and local (stack)
     bytes per thread, static shared bytes per block, resident blocks
     and warps per SM, and the trial-vector values per lane (``dpl``, 0
-    when they stay in the bank)."""
+    when they stay in the bank); for ``external`` also the micro-step
+    segments' entry's registers and warps per SM.  Querying an entry
+    loads it, as a capture needs."""
     from .. import _build
 
     fn = _build.load().walnuts_round_attributes
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     err = fn(0 if dtype == torch.float64 else 1, INSTANTIATIONS[target], D,
              out)
     if err != 0:
         raise RuntimeError(f"round kernel attributes: cudaError {err}")
-    regs, local, shared, blocks, threads, dpl = out
-    return dict(regs=regs, local_bytes=local, shared_bytes=shared,
-                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
-                dpl=dpl)
+    regs, local, shared, blocks, threads, dpl, m_regs, m_blocks = out
+    got = dict(regs=regs, local_bytes=local, shared_bytes=shared,
+               blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+               dpl=dpl)
+    if target == "external":
+        got.update(micro_regs=m_regs,
+                   micro_warps_per_sm=m_blocks * threads // 32)
+    return got

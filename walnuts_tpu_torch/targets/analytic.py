@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from .base import Target
+from .base import Target, constant_like
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -128,9 +128,7 @@ def funnel_rescaled(dim: int, scale: float = 3.0) -> Target:
     base = funnel(dim, scale)
     s64 = torch.ones(dim, dtype=torch.float64)
     s64[0] = scale
-
-    def s_for(q):
-        return s64.to(dtype=q.dtype, device=q.device)
+    s_for = constant_like(s64)
 
     def logp(q):
         return base._logp(s_for(q) * q)
@@ -149,9 +147,7 @@ def ill_conditioned_gauss(dim: int, kappa: float = 1e4) -> Target:
     ``[1, kappa]``."""
     var64 = 10.0 ** torch.linspace(0.0, math.log10(kappa), dim,
                                    dtype=torch.float64)
-
-    def var_for(q):
-        return var64.to(dtype=q.dtype, device=q.device)
+    var_for = constant_like(var64)
 
     def logp(q):
         return -0.5 * torch.sum(q * q / var_for(q))

@@ -116,3 +116,19 @@ class Target:
 
     def __repr__(self):
         return f"Target({self.name}, dim={self.dim})"
+
+
+def constant_like(t64):
+    """``like(q)``: the constant tensor ``t64`` on ``q``'s device in
+    ``q``'s dtype, made once per device and dtype, so that a gradient
+    call copies nothing from the host (and can be captured in a CUDA
+    graph)."""
+    cache = {}
+
+    def like(q):
+        key = (q.device, q.dtype)
+        if key not in cache:
+            cache[key] = t64.to(device=q.device, dtype=q.dtype)
+        return cache[key]
+
+    return like

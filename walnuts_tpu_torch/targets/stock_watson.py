@@ -51,7 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .base import Target
+from .base import Target, constant_like
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _DATA_PATH = (Path(__file__).resolve().parents[2] / "examples" / "data"
@@ -98,14 +98,7 @@ def stock_watson(data_path=None, proper=False) -> Target:
     y64 = torch.from_numpy(y_np)
     dim = 3 * T
     n_inn = (T - 2) + 2 * (T - 1)
-    y_cache = {}
-
-    def y_like(q):
-        """The series on ``q``'s device in its dtype, made once."""
-        key = (q.device, q.dtype)
-        if key not in y_cache:
-            y_cache[key] = y64.to(device=q.device, dtype=q.dtype)
-        return y_cache[key]
+    y_like = constant_like(y64)  # the series on q's device, in its dtype
 
     def lp_of(q, t_sigma, z, x, tau, inn):
         zinn, xinn, tauinn = inn
