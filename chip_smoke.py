@@ -181,7 +181,7 @@ def phase_build(_build, rk):
     shapes = [(tgt, tid, D) for tgt, tid in (("funnel", "0"),
                                              ("std_gauss", "1"))
               for D in (32, 64, 96, 128, 160)]  # DPL 1-4, then 0 (D > 128)
-    shapes.append(("stock_watson", "2", 756))  # DPL 0 at every D
+    shapes.append(("stock_watson", "2", 756))  # DPL 6 over 4 warps
     shapes.append(("external", "3", 101))  # DPL 0 at every D
     micro = {}  # round_kernel_micro<T>, the external micro-step segments
     for i, line in enumerate(lines):
@@ -194,15 +194,30 @@ def phase_build(_build, rk):
         for tgt, tid, D in shapes:
             a = rk.kernel_attributes(dtype, tgt, D)
             dpl = a["dpl"]
-            log(f"  round_kernel<{dtype}, {tgt}, DPL={dpl}>: ptxas "
+            log(f"  round_kernel<{dtype}, {tgt}, DPL={dpl}, "
+                f"WPC={a['warps_per_chain']}>: ptxas "
                 f"{ptxas.get((prec, tid, str(dpl)), 'not found')} | "
                 f"runtime {a['regs']} registers, {a['local_bytes']} "
-                f"local bytes, {a['warps_per_sm']} warps/SM")
+                f"local bytes, {a['threads_per_block']} threads/block, "
+                f"{a['warps_per_sm']} warps/SM")
         a = rk.kernel_attributes(dtype, "external", 101)
         log(f"  round_kernel_micro<{dtype}> (external micro-step "
             f"segments): ptxas {micro.get(prec, 'not found')} | runtime "
             f"{a['micro_regs']} registers, {a['micro_warps_per_sm']} "
             f"warps/SM")
+    # Stock-Watson: one chain per block, the example's 256 chains
+    # resident in one wave, nothing in local memory
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        a = rk.kernel_attributes(dtype, "stock_watson", 756)
+        wave = a["blocks_per_sm"] * sms * a["threads_per_block"] // (
+            32 * a["warps_per_chain"])
+        log(f"  stock_watson {dtype}: {wave} chains resident in one wave on "
+            f"{sms} SMs ({SW_CHAINS} run), {a['local_bytes']} local bytes")
+        if wave < SW_CHAINS or a["local_bytes"]:
+            raise AssertionError("phase 1: the Stock-Watson instantiation "
+                                 "does not hold its chains in one wave "
+                                 "without local memory")
     main = rk.kernel_attributes(torch.float32, "funnel", 101)
     log(f"  main path (float32 funnel, D=101): {main}")
     ext = rk.kernel_attributes(torch.float32, "external", 101)
@@ -1011,6 +1026,9 @@ def phase_iso(tw, rk, dev):
 SW_CHAINS, SW_M, SW_H0, SW_DELTA0 = 256, 10, 0.1, 0.3
 SW_BURNIN, SW_ITERS, SW_ROUNDS = 250, 250, 2500
 SW_ADAM_STEPS, SW_ADAM_LR = 4000, 0.02
+# A device sleep of ~25 ms at the H100's clocks, ahead of a timed run of
+# launches that each take less time on the card than on the host
+SLEEP_CYCLES = 50_000_000
 
 
 def _sw_find_mode(target, dev):
@@ -1229,6 +1247,10 @@ def phase_sw(tw, mk, rk, dev):
         banks = rk.pack(st0)
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # the launches queue behind a device sleep: at ~0.06 ms a kernel
+        # takes less than the host's run_rounds call, and the events
+        # would time the host
+        torch.cuda._sleep(SLEEP_CYCLES)
         e0.record()
         for i in range(periods):
             fn(banks, i * mk.FLUSH_EVERY, spec)

@@ -9,7 +9,9 @@ host without them (``--noconftest`` skips the suite's JAX setup):
 """
 
 import ctypes
+import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -138,8 +140,89 @@ def test_stock_watson_kernel_matches_plain_twin_on_gpu(cuda_device,
     torch.cuda.synchronize()
     assert int(a.si[rk.I_FIELDS.index("grad_ct")].sum()) > 0
     _assert_banks_close(a, b, rtol=1e-9, atol=1e-12)
-    assert rk.kernel_attributes(torch.float64, "stock_watson", 756)[
-        "dpl"] == 0
+    # one chain per block of four warps, six trial values per thread in
+    # registers, nothing in local memory, and the example's 256 chains
+    # resident in one wave
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        at = rk.kernel_attributes(dtype, "stock_watson", 756)
+        assert at["local_bytes"] == 0 and at["dpl"] == 6
+        assert at["warps_per_chain"] == 4 and at["threads_per_block"] == 128
+        assert at["blocks_per_sm"] * sms >= 256
+
+
+def _sw_synthetic(path, T):
+    """Stock-Watson (the proper model) over a numpy-seeded synthetic
+    series of ``T`` quarters written to ``path``."""
+    rng = np.random.default_rng(T)
+    y = np.cumsum(0.3 * rng.normal(size=T)) + rng.normal(size=T)
+    path.write_text(json.dumps({"T": T, "y": y.tolist()}))
+    return tw.targets.stock_watson(path, proper=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [3, 100, 256])
+def test_stock_watson_kernel_matches_twin_at_ragged_series(cuda_device,
+                                                          tmp_path, T):
+    """Series whose ends fall inside a thread's block of indices, a warp
+    or the last warp (T = 3: two threads hold the series; T = 100: two
+    warps, the second in part; T = 256: every thread): float64, 8
+    chains, 64 rounds of up to four micro steps, kernel against its twin
+    under the exact contract, integer banks equal."""
+    target = _sw_synthetic(tmp_path / f"sw_{T}.json", T)
+    C = 8
+    g = torch.Generator().manual_seed(T)
+    q0 = (0.1 * torch.randn(C, target.dim, generator=g,
+                            dtype=torch.float64)).to(cuda_device)
+    kw = dict(target=target, num_iter=12, stop_mode="min_per_chain",
+              rounds=64, diag_rows=4, micro_unroll=4,
+              cfg=tw.WalnutsConfig(m=4, integrator="adapt_leapfrog_d",
+                                   igr=tw.IntegratorConfig(min_c=2)))
+    h = torch.full((C,), 0.02, dtype=torch.float64, device=cuda_device)
+    dl = torch.full((C,), 0.3, dtype=torch.float64, device=cuda_device)
+    launches = rk.launches
+    a = rk.pack(mk.run_walnuts_fused(9, q0, h, dl, **kw)[-1])
+    assert rk.launches == launches + 4
+    b = rk.pack(mk.run_walnuts_fused_plain(9, q0, h, dl, **kw)[-1])
+    torch.cuda.synchronize()
+    assert int(a.si[rk.I_FIELDS.index("grad_ct")].sum()) > 0
+    _assert_banks_close(a, b, **EXACT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [100, 252])
+def test_stock_watson_float32_kernel_matches_twin_over_one_launch(
+        cuda_device, tmp_path, T):
+    """The float32 instantiation (its chain's vector block held in shared
+    memory for the launch, the bf16 slab): one 16-round launch of 32
+    chains from the same state as the twin, integer banks equal, floats
+    within chip_smoke phase 9b's float32 tolerance (rtol 1e-4, atol
+    1e-3; one bf16 step for the slabs)."""
+    target = (tw.targets.stock_watson(proper=True) if T == 252 else
+              _sw_synthetic(tmp_path / f"sw_{T}.json", T))
+    C = 32
+    g = torch.Generator().manual_seed(T)
+    q0 = (0.1 * torch.randn(C, target.dim, generator=g)).to(cuda_device)
+    kw = dict(target=target, num_iter=12, stop_mode="min_per_chain",
+              rounds=16, diag_rows=4, micro_unroll=1,
+              cfg=tw.WalnutsConfig(m=6, integrator="adapt_leapfrog_d",
+                                   igr=tw.IntegratorConfig(min_c=3)))
+    h = torch.full((C,), 0.02, device=cuda_device)
+    dl = torch.full((C,), 0.3, device=cuda_device)
+    launches = rk.launches
+    a = rk.pack(mk.run_walnuts_fused(9, q0, h, dl, **kw)[-1])
+    assert rk.launches == launches + 1
+    b = rk.pack(mk.run_walnuts_fused_plain(9, q0, h, dl, **kw)[-1])
+    torch.cuda.synchronize()
+    assert int(a.si[rk.I_FIELDS.index("grad_ct")].sum()) > 0
+    torch.testing.assert_close(a.si, b.si, rtol=0, atol=0)
+    for name in ("sf", "vx", "samples", "diags"):
+        torch.testing.assert_close(getattr(a, name), getattr(b, name),
+                                   rtol=1e-4, atol=1e-3, equal_nan=True)
+    for name in ("slab_q", "slab_v"):
+        torch.testing.assert_close(getattr(a, name).float(),
+                                   getattr(b, name).float(), rtol=2.0 ** -7,
+                                   atol=1e-3)
 
 
 @pytest.mark.cuda

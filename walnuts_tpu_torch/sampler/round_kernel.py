@@ -6,14 +6,23 @@ Replaces the TPU kernel ``walnuts_tpu/sampler/pallas_megakernel.py``
 held a block of 128 chains in VMEM and ran the shared round body on
 ``[128, 128]`` tiles; on the v5e scoped VMEM capped the block there and
 it lost to XLA.  The CUDA kernel (``csrc/round_kernel.cu``) instead
-gives each chain one warp: the D coordinates spread over the lanes, the
-target's gradient (the funnel's, the standard normal's or
-Stock-Watson's) is fused into the leapfrog step, and D-reductions
-(kinetic energy, the funnel's sum of squares, U-turn and merge dots)
-are warp shuffles.  Each warp follows its own chain's control flow, so
-no chain waits on another's mask.  Stock-Watson's gradient is six scans
-over its series; the kernel runs them over blocks of eight indices per
-lane joined by warp scans, with the trial vectors in the bank.
+gives each chain its own warps (:data:`WARPS_PER_CHAIN`): the D
+coordinates spread over the chain's threads, the target's gradient (the
+funnel's, the standard normal's or Stock-Watson's) is fused into the
+leapfrog step, and D-reductions (kinetic energy, the funnel's sum of
+squares, U-turn and merge dots) are warp shuffles, then across the
+chain's warps a fixed-order sum through shared memory.  Each chain
+follows its own control flow, so no chain waits on another's mask.
+
+Stock-Watson's gradient is six scans over its series.  Its users run a
+few hundred chains, so one warp per chain left most SMs idle and each
+micro step one long dependent chain of latencies.  It runs one chain
+per block of four warps: its trial vectors in registers (six values per
+thread), the position and gradient rows in shared memory (in float32
+the chain's whole block of ``vx`` too, for the launch), each thread two
+series indices, each scan a warp scan joined across the four warps by a
+prefix in a fixed order.  Its bound is the state bytes, 0.0144 ms per
+launch at 256 chains, D = 756, float32.
 
 What bounds it on the H100: latency at too few resident warps, then
 state bytes.  A launch reads and writes each chain's state once, about
@@ -281,7 +290,21 @@ class _RoundParams(ctypes.Structure):
 KERNEL_TARGETS = {"funnel": 0, "std_gauss": 1, "stock_watson": 2}
 EXTERNAL = 3  # the instantiation that takes any target's torch gradient
 INSTANTIATIONS = dict(KERNEL_TARGETS, external=EXTERNAL)
-SW_TMAX = 256  # Stock-Watson series the kernel fuses: 8 indices per lane
+SW_TMAX = 256  # Stock-Watson series the kernel fuses: 2 indices per thread
+# Warps per chain of each instantiation, and threads per block (four
+# one-warp chains, or one chain): the kernel's launch geometry
+# (``csrc/round_kernel.cu``: wpc_for, block_threads, launch).
+WARPS_PER_CHAIN = {"funnel": 1, "std_gauss": 1, "stock_watson": 4,
+                   "external": 1}
+THREADS = 128
+
+
+def launch_geometry(target: str, C: int):
+    """``(threads per block, blocks)`` of a launch of the instantiation
+    ``target`` (an ``INSTANTIATIONS`` key) over ``C`` chains."""
+    wpc = WARPS_PER_CHAIN[target]
+    threads = THREADS if wpc == 1 else 32 * wpc
+    return threads, -(-C * 32 * wpc // threads)
 
 
 def _summary_id(target):
@@ -638,27 +661,35 @@ def kernel_attributes(dtype, target: str, D: int) -> dict:
     """What the kernel instantiation that runs ``dtype``, ``target`` (an
     ``INSTANTIATIONS`` key) and dimension ``D`` was built with, from the
     CUDA runtime on the current device: registers and local (stack)
-    bytes per thread, static shared bytes per block, resident blocks
-    and warps per SM, and the trial-vector values per lane (``dpl``, 0
-    when they stay in the bank); for ``external`` also the micro-step
-    segments' entry's registers and warps per SM.  Querying an entry
-    loads it, as a capture needs."""
+    bytes per thread, shared bytes per block (static and dynamic),
+    resident blocks and warps per SM, threads per block, warps per
+    chain, and the trial-vector values per thread (``dpl``, 0 when they
+    stay in the bank); for ``external`` also the micro-step segments'
+    entry's registers and warps per SM.  Raises if the library's launch
+    geometry is not :func:`launch_geometry`'s.  Querying an entry loads
+    it, as a capture needs."""
     from .. import _build
 
     fn = _build.load().walnuts_round_attributes
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 9)()
     err = fn(0 if dtype == torch.float64 else 1, INSTANTIATIONS[target], D,
              out)
     if err != 0:
         raise RuntimeError(f"round kernel attributes: cudaError {err}")
-    regs, local, shared, blocks, threads, dpl, m_regs, m_blocks = out
+    regs, local, shared, blocks, threads, dpl, m_regs, m_blocks, wpc = out
+    want = launch_geometry(target, 1)[0], WARPS_PER_CHAIN[target]
+    if (threads, wpc) != want:
+        raise RuntimeError(
+            f"round kernel {target}: the library launches {threads} threads "
+            f"per block, {wpc} warps per chain; launch_geometry says "
+            f"{want[0]}, {want[1]}")
     got = dict(regs=regs, local_bytes=local, shared_bytes=shared,
                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
-               dpl=dpl)
+               threads_per_block=threads, warps_per_chain=wpc, dpl=dpl)
     if target == "external":
         got.update(micro_regs=m_regs,
-                   micro_warps_per_sm=m_blocks * threads // 32)
+                   micro_warps_per_sm=m_blocks * THREADS // 32)
     return got
