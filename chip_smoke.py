@@ -25,7 +25,13 @@ fuses its gradient: float64 kernel against twin under the example's
 three protocols, then the example's walnuts_d arm at 256 chains with
 its speed, kernel time beside its bound and medians beside the
 committed example's bands; 9c holds the paper-pseudocode mode and the
-Monge integrators on the card against the CPU.  Phase 10 starts two
+Monge integrators on the card against the CPU; 9d runs the port's
+example harness (``walnuts_tpu_torch.examples.stock_watson``, whose
+mode search and streams 9 and 9b use too) for its R2P (m = 10) and
+NUTS (m = 12) arms at 256 chains, each with a one-launch check of the
+kernel against its twin, its speed, kernel time beside its bound and
+its split-Rhat and bands beside the JAX example's, then times the copy
+of the harness's largest ring that each of its engine calls makes.  Phase 10 starts two
 gloo ranks on the one card (``walnuts_tpu_torch.parallel.run_ranks``,
 with the rank functions below): 10a holds the float64 kernel over the
 ranks against one process, 10b runs the main path at full width over
@@ -135,7 +141,8 @@ def main():
     scan_state, scan_s_per_it = phase_scan(tw, rk, dev)
     phase_stream(tw, rk, dev, scan_state, scan_s_per_it)
     phase_iso(tw, rk, dev)
-    sw = phase_sw(tw, mk, rk, dev)
+    sw, mode = phase_sw(tw, mk, rk, dev)
+    phase_sw_arms(tw, mk, rk, dev, mode)
     phase_modes(tw, rk, dev)
     phase_ranks_exact(tw, mk, rk, dev)
     phase_ranks_main(tw, mk, rk, dev, main_run)
@@ -1026,46 +1033,17 @@ def phase_iso(tw, rk, dev):
 SW_CHAINS, SW_M, SW_H0, SW_DELTA0 = 256, 10, 0.1, 0.3
 SW_BURNIN, SW_ITERS, SW_ROUNDS = 250, 250, 2500
 SW_ADAM_STEPS, SW_ADAM_LR = 4000, 0.02
+# Phase 9d runs the port's harness (walnuts_tpu_torch.examples.
+# stock_watson.run_arm) for these arms at 9b's width, their burn-in and
+# draws cut to these (the full run is the harness's own)
+SW_ARMS = ("walnuts_r2p", "nuts")
+SW_ARM_BURNIN = SW_ARM_ITERS = 100
+# the ring of the harness's longest sample phase (the R2P arm's 6000
+# draws of 128 chains), whose copy per call 9d times
+SW_RING = (6000, 128)
 # A device sleep of ~25 ms at the H100's clocks, ahead of a timed run of
 # launches that each take less time on the card than on the host
 SLEEP_CYCLES = 50_000_000
-
-
-def _sw_find_mode(target, dev):
-    """``examples/stock_watson.py:find_mode`` with ``torch.optim.Adam``:
-    ``SW_ADAM_STEPS`` steps of ascent on the log density from zeros in
-    float32.  Returns the point and its log density."""
-    import torch
-
-    q = torch.zeros(target.dim, device=dev, dtype=torch.float32,
-                    requires_grad=True)
-    opt = torch.optim.Adam([q], lr=SW_ADAM_LR)
-    for _ in range(SW_ADAM_STEPS):
-        _, g = target.logp_grad(q.detach())
-        q.grad = -g
-        opt.step()
-    q = q.detach()
-    return q, float(target.logp(q))
-
-
-def _sw_stream(mk, seed, q0, h, dl, *, target, cfg, num_iter, ring_rows=None,
-               limit_s=400):
-    """One min_per_chain run as ``SW_ROUNDS``-round invocations that
-    resume through ``mk_state`` (the example's ``_stream``).  Returns
-    the final state and the number of invocations."""
-    kw = dict(target=target, cfg=cfg, num_iter=num_iter,
-              stop_mode="min_per_chain", rounds=SW_ROUNDS, diag_rows=8,
-              ring_rows=ring_rows, device=q0.device)
-    t0 = time.perf_counter()
-    st, calls = None, 0
-    while True:
-        st = mk.run_walnuts_fused(seed, q0, h, dl, mk_state=st, **kw)[-1]
-        calls += 1
-        if int(st.it.min()) >= num_iter:
-            return st, calls
-        if time.perf_counter() - t0 > limit_s:
-            raise AssertionError(f"Stock-Watson reached {int(st.it.min())} "
-                                 f"of {num_iter} transitions in {limit_s} s")
 
 
 def _contract_ratio(a, b, rtol, atol):
@@ -1084,6 +1062,109 @@ def _contract_ratio(a, b, rtol, atol):
     return worst
 
 
+# The float32 rows that carry differences and exponentials of the
+# Hamiltonian: the energy errors and the multinomial weight sums
+# exp(H0 - H).  From the harness's start (the mode plus 0.5-sd jitter)
+# some chains begin with |H| up to ~1e10 and lose hundreds of units of
+# it within a launch (the float64 weight sums reach ~1e211), so a
+# last-bit difference of H between two summation orders moves these
+# rows by far more than 9b's rtol; 9d holds them in float64 instead.
+SW_ENERGY_ROWS = ("dht", "dha", "w_new_sum", "w_old_sum")
+
+
+def _sw_twin_check(mk, rk, target, cfg, q0, h, dl, seed, num_iter,
+                   skip_rows=()):
+    """One 16-round launch of the float32 kernel against its twin from
+    ``q0`` at the arm's shape: the share of chains whose integer state
+    is equal (at least 0.99, else this raises) and, on those, the
+    largest float difference within rtol 1e-4, atol 1e-3 and one bf16
+    ulp for the slabs, outside the scalar rows named in ``skip_rows``.
+    Those rows' largest relative difference is returned too (None
+    without them).  These launches do not count."""
+    import torch
+
+    kw = dict(target=target, cfg=cfg, num_iter=num_iter,
+              stop_mode="min_per_chain", rounds=16, diag_rows=8,
+              device=q0.device)
+    launches = rk.launches
+    a = rk.pack(mk.run_walnuts_fused(seed, q0, h, dl, **kw)[-1])
+    b = rk.pack(mk.run_walnuts_fused_plain(seed, q0, h, dl, **kw)[-1])
+    torch.cuda.synchronize()
+    rk.launches = launches
+    agree = (a.si == b.si).all(0)
+    frac = float(agree.float().mean())
+    if frac < 0.99:
+        raise AssertionError(f"f32 Stock-Watson: integer state agrees on "
+                             f"{frac:.4f} of chains")
+    cols = agree.nonzero().flatten()
+    sf_a, rel = a.sf, None
+    if skip_rows:
+        rows = [rk.F_FIELDS.index(f) for f in skip_rows]
+        x = a.sf[rows][:, cols].double()
+        y = b.sf[rows][:, cols].double()
+        if not torch.equal(torch.isfinite(x), torch.isfinite(y)):
+            raise AssertionError(f"f32 Stock-Watson: non-finite entries of "
+                                 f"{skip_rows} differ")
+        fin = torch.isfinite(y) & (y != 0)
+        rel = float(((x - y).abs()[fin] / y.abs()[fin]).max()) \
+            if fin.any() else 0.0
+        sf_a = a.sf.clone()
+        sf_a[rows] = b.sf[rows]
+    err = _banks_compare(
+        rk.Banks(sf_a, a.si, a.vx, a.slab_q.float(), a.slab_v.float(),
+                 a.samples, a.diags),
+        rk.Banks(b.sf, b.si, b.vx, b.slab_q.float(), b.slab_v.float(),
+                 b.samples, b.diags), chains=cols, rtol=1e-4, atol=1e-3,
+        slab_rtol=2.0 ** -7)
+    return frac, err, rel
+
+
+def _sw_timing(mk, rk, target, cfg, qc, h, dl, seed, num_iter, plain=True):
+    """Kernel (and, if ``plain``, twin) ms per 16-round launch from the
+    chains ``qc``, best of two runs of 16 kernel launches (2 twin
+    periods), each queued behind a device sleep: at ~0.05 ms a kernel
+    takes less than the host's ``run_rounds`` call, and the events would
+    time the host.  Returns ``(ms, plain_ms, kernel runs, twin runs,
+    bound)`` with ``_bound`` over the kernel's launches; these launches
+    do not count."""
+    import torch
+
+    st0 = mk.init_state(qc, h, dl, target=target, cfg=cfg, warmup=None,
+                        num_iter=num_iter, diag_rows=8)
+    spec = rk.RoundSpec(target=target, cfg=cfg, warmup=None,
+                        stop_mode="min_per_chain", num_iter=num_iter,
+                        micro_unroll=1, seed=seed)
+    counted = rk.launches
+
+    def timed(fn, periods):
+        banks = rk.pack(st0)
+        fn(banks, 0, spec)  # warm the path
+        banks = rk.pack(st0)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        for i in range(periods):
+            fn(banks, i * mk.FLUSH_EVERY, spec)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / periods, banks
+
+    times = {"kernel": [], "plain": []}
+    order = ("kernel", "plain", "kernel", "plain") if plain else ("kernel",
+                                                                  "kernel")
+    for name in order:
+        fn = rk.run_rounds if name == "kernel" else rk.run_rounds_plain
+        t, banks = timed(fn, 16 if name == "kernel" else 2)
+        times[name].append(t)
+        if name == "kernel":
+            after = banks
+    rk.launches = counted
+    bound = _bound(rk, rk.pack(st0), after, 16, None, SW_FLOPS_PER_COORD)
+    return (min(times["kernel"]), min(times["plain"], default=None),
+            times["kernel"], times["plain"], bound)
+
+
 def phase_sw(tw, mk, rk, dev):
     """Stock-Watson through the fused engine on the card.  (a) float64,
     the proper model at full D = 756, 32 chains from the mode plus
@@ -1093,15 +1174,18 @@ def phase_sw(tw, mk, rk, dev):
     one.  (b) the example's walnuts_d arm at full width (``SW_*``), with
     a one-launch float32 check of the kernel against its twin at that
     shape, its speed, its kernel time per launch beside its bound, and
-    its medians beside the committed example's bands.  Returns the
-    kernels line's entry."""
+    its medians beside the committed example's bands; its streams are
+    the port's harness's (``walnuts_tpu_torch.examples.stock_watson``).
+    Returns the kernels line's entry and the mode."""
     import torch
+    from walnuts_tpu_torch.examples import stock_watson as swx
     from walnuts_tpu_torch.utils.parity import ADAPTIVE, EXACT
 
     target = tw.targets.stock_watson(proper=True)
     D, T = target.dim, target.kernel_args["T"]
     t0 = time.perf_counter()
-    mode, mode_lp = _sw_find_mode(target, dev)
+    mode, mode_lp = swx.find_mode(target, steps=SW_ADAM_STEPS, lr=SW_ADAM_LR,
+                                  device=dev)
     log(f"phase 9 Stock-Watson mode: Adam {SW_ADAM_STEPS} steps, lr "
         f"{SW_ADAM_LR}, from zeros, float32: logp {mode_lp:.2f} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1155,41 +1239,25 @@ def phase_sw(tw, mk, rk, dev):
     dl = torch.full((C,), SW_DELTA0, device=dev)
 
     # one launch of the kernel against its twin at this shape (f32)
-    kw = dict(target=target, cfg=cfg, num_iter=SW_ITERS,
-              stop_mode="min_per_chain", rounds=16, diag_rows=8, device=dev)
-    launches = rk.launches
-    a = rk.pack(mk.run_walnuts_fused(21, q0, h, dl, **kw)[-1])
-    b = rk.pack(mk.run_walnuts_fused_plain(21, q0, h, dl, **kw)[-1])
-    torch.cuda.synchronize()
-    rk.launches = launches
-    agree = (a.si == b.si).all(0)
-    frac = float(agree.float().mean())
-    if frac < 0.99:
-        raise AssertionError(f"9b f32: integer state agrees on {frac:.4f} "
-                             "of chains")
-    cols = agree.nonzero().flatten()
-    tol = dict(rtol=1e-4, atol=1e-3, slab_rtol=2.0 ** -7)
-    f32_err = _banks_compare(
-        rk.Banks(a.sf, a.si, a.vx, a.slab_q.float(), a.slab_v.float(),
-                 a.samples, a.diags),
-        rk.Banks(b.sf, b.si, b.vx, b.slab_q.float(), b.slab_v.float(),
-                 b.samples, b.diags), chains=cols, **tol)
+    frac, f32_err, _ = _sw_twin_check(mk, rk, target, cfg, q0, h, dl, 21,
+                                      SW_ITERS)
     log(f"phase 9b f32/bf16 kernel vs plain at the arm's shape (C={C}, "
         f"D={D}), 16 rounds: integer state equal on {frac:.4f} of chains; "
         f"on those, max abs float diff {f32_err:.3e} (rtol 1e-4, atol 1e-3, "
         f"slab rtol 2^-7)")
 
     rk.launches = 0
+    kw = dict(target=target, cfg=cfg, rounds=SW_ROUNDS, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    burn, burn_calls = _sw_stream(mk, 22, q0, h, dl, target=target, cfg=cfg,
-                                  num_iter=SW_BURNIN, ring_rows=8)
+    burn, burn_calls = swx.stream(22, q0, h, dl, num_iter=SW_BURNIN,
+                                  ring_rows=8, tag="9b burn-in", **kw)
     torch.cuda.synchronize()
     t_burn = time.perf_counter() - t0
     burn_launches = rk.launches
     t0 = time.perf_counter()
-    st, calls = _sw_stream(mk, 23, burn.qc, h, dl, target=target, cfg=cfg,
-                           num_iter=SW_ITERS)
+    st, calls = swx.stream(23, burn.qc, h, dl, num_iter=SW_ITERS,
+                           tag="9b draws", **kw)
     torch.cuda.synchronize()
     t_draw = time.perf_counter() - t0
     launches = rk.launches
@@ -1219,8 +1287,7 @@ def phase_sw(tw, mk, rk, dev):
     # examples/out_stock_watson.json; each band is the mean over the
     # block's coordinates of a quantile)
     x = draws.double()
-    bands = json.loads((HERE / "examples" / "out_stock_watson.json")
-                       .read_text())["runs"]["walnuts_d"]["bands"]
+    bands = _example_runs()["walnuts_d"]["bands"]
     tau = x[..., 2 * T:3 * T].reshape(-1, T)
     taus = {t: float(tau[:, t].median()) for t in (0, T // 2, T - 1)}
     log(f"phase 9b medians over {SW_ITERS} draws x {C} chains (reported, "
@@ -1233,49 +1300,159 @@ def phase_sw(tw, mk, rk, dev):
         f"{bands['tau']['q50']:.4f} / {bands['tau']['q90']:.4f})")
 
     # kernel and twin time per launch at this shape, from the burnt-in
-    # chains; these launches do not count
-    st0 = mk.init_state(burn.qc, h, dl, target=target, cfg=cfg, warmup=None,
-                        num_iter=SW_ITERS, diag_rows=8)
-    spec = rk.RoundSpec(target=target, cfg=cfg, warmup=None,
-                        stop_mode="min_per_chain", num_iter=SW_ITERS,
-                        micro_unroll=1, seed=23)
-    counted = rk.launches
+    # chains
+    ms, plain_ms, k_runs, p_runs, bound = _sw_timing(
+        mk, rk, target, cfg, burn.qc, h, dl, 23, SW_ITERS)
+    log(f"phase 9b timing: Stock-Watson C={C} D={D} f32, 256 rounds: kernel "
+        f"{ms:.4f} ms per 16-round launch ({[round(t, 4) for t in k_runs]}), "
+        f"plain {plain_ms:.3f} ms ({[round(t, 3) for t in p_runs]}); bound "
+        f"{bound[0]:.4f} ms ({bound[1]}: {bound[2]}), kernel at "
+        f"{bound[0] / ms:.1%} of it; on {CARD}")
+    return dict(launches=launches, max_abs_err=f32_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1]), mode
 
-    def timed(fn, periods):
-        banks = rk.pack(st0)
-        fn(banks, 0, spec)  # warm the path
-        banks = rk.pack(st0)
+
+def _example_runs():
+    """The committed JAX example's arms (examples/out_stock_watson.json)."""
+    return json.loads((HERE / "examples" / "out_stock_watson.json")
+                      .read_text())["runs"]
+
+
+def phase_sw_arms(tw, mk, rk, dev, mode):
+    """9d: the port's Stock-Watson harness (``walnuts_tpu_torch.
+    examples.stock_watson.run_arm``) for the ``SW_ARMS`` at 9b's width:
+    the proper model, D = 756, ``SW_CHAINS`` chains, float32, fixed
+    tuning from the mode plus 0.5 sd, each arm's own m (R2P 10, NUTS
+    12), ``SW_ARM_BURNIN`` burn-in transitions and ``SW_ARM_ITERS``
+    draws.  For each arm: the float64 kernel against its twin at the
+    arm's shape under the exact contract, one float32 launch against the
+    twin (``_sw_twin_check``, the ``SW_ENERGY_ROWS`` reported), the run (launches, finite draws, every chain at
+    its quota; wall, grad-evals/s, draws/s), kernel ms per launch
+    beside its bound, and the harness's split-Rhat and bands beside the
+    same arm's in examples/out_stock_watson.json (reported, not gated,
+    at this depth).  Then the copy of the harness's largest ring
+    (``SW_RING``) that each of its ``run_walnuts_fused`` calls makes,
+    against a call's wall at ``ROUNDS`` rounds."""
+    import torch
+    from walnuts_tpu_torch.examples import stock_watson as swx
+    from walnuts_tpu_torch.utils.parity import EXACT
+
+    target = tw.targets.stock_watson(proper=True)
+    D = target.dim
+    C = SW_CHAINS
+    jax_runs = _example_runs()
+    q0 = swx.start_point("mode", C, D, mode)
+    wall_per_launch = []
+    for tag in SW_ARMS:
+        (_, integ, h0, igr, _, m), = [c for c in swx.CONFIGS if c[0] == tag]
+        cfg = tw.WalnutsConfig(m=m, integrator=integ,
+                               igr=tw.IntegratorConfig(**igr))
+        h = torch.full((C,), h0, device=dev)
+        dl = torch.full((C,), swx.DELTA0, device=dev)
+        seeds = swx.arm_seeds(tag)
+        # float64 at the arm's shape: the kernel at this m against the
+        # twin under the exact contract
+        kw = dict(target=target, cfg=cfg, num_iter=SW_ARM_BURNIN,
+                  stop_mode="min_per_chain", rounds=160, diag_rows=8,
+                  device=dev)
+        q64, h64, dl64 = (x.double() for x in (q0, h, dl))
+        launches = rk.launches
+        a = rk.pack(mk.run_walnuts_fused(seeds["burnin"], q64, h64, dl64,
+                                         **kw)[-1])
+        b = rk.pack(mk.run_walnuts_fused_plain(seeds["burnin"], q64, h64,
+                                               dl64, **kw)[-1])
+        torch.cuda.synchronize()
+        rk.launches = launches
+        err64 = _banks_compare(a, b, **EXACT)
+        log(f"phase 9d {tag} (m={m}) f64 kernel vs plain at the arm's shape "
+            f"(C={C}, D={D}), 160 rounds from the harness's start: integer "
+            f"banks equal, max abs float diff {err64:.3e}; EXACT holds, "
+            f"worst error over its bound {_contract_ratio(a, b, **EXACT):.3g}")
+        del a, b
+        frac, err, rel = _sw_twin_check(
+            mk, rk, target, cfg, q0, h, dl, seeds["burnin"], SW_ARM_BURNIN,
+            skip_rows=SW_ENERGY_ROWS)
+        log(f"phase 9d {tag} (m={m}) f32/bf16 kernel vs plain at the arm's "
+            f"shape, 16 rounds from the harness's start: integer state equal "
+            f"on {frac:.4f} of chains; on those, max abs float diff "
+            f"{err:.3e} (rtol 1e-4, atol 1e-3, slab rtol 2^-7) outside the "
+            f"rows {', '.join(SW_ENERGY_ROWS)}, whose largest relative "
+            f"difference is {rel:.3e} (held in float64 above)")
+
+        rk.launches = 0
+        res, st = swx.run_arm(tag, chains=C, iters=SW_ARM_ITERS,
+                              burnin=SW_ARM_BURNIN, q0=q0, device=dev)
+        launches = rk.launches
+        if launches == 0:
+            raise AssertionError(f"9d {tag}: the kernel was never launched")
+        if tuple(st.samples.shape) != (SW_ARM_ITERS, C, D) or \
+                not bool(torch.isfinite(st.samples).all()):
+            raise AssertionError(f"9d {tag}: bad draws "
+                                 f"{tuple(st.samples.shape)}")
+        if int(st.it.min()) < SW_ARM_ITERS:
+            raise AssertionError(f"9d {tag}: a chain is short of its quota")
+        wall = res["seconds"]
+        ph = res["phases"]
+        wall_per_launch.append(wall / launches)
+        log(f"phase 9d {tag} through the harness: proper model D={D} C={C} "
+            f"m={m} H0 {h0} f32, fixed tuning: {SW_ARM_BURNIN} burn-in "
+            f"transitions in {ph['burnin']['seconds']:.2f} s, "
+            f"{SW_ARM_ITERS} draws in {ph['sample']['seconds']:.2f} s "
+            f"({ph['burnin']['calls']} + {ph['sample']['calls']} calls): "
+            f"wall {wall:.2f} s, {res['grad_evals']:.0f} grad evals = "
+            f"{res['grad_evals_per_s']:.1f} grad-evals/s, "
+            f"{C * SW_ARM_ITERS / ph['sample']['seconds']:.1f} draws/s; "
+            f"kernel launches {launches} ({1e3 * wall / launches:.4f} ms of "
+            f"wall each); on {CARD}")
+
+        ms, _, k_runs, _, bound = _sw_timing(
+            mk, rk, target, cfg, st.qc, h, dl, seeds["sample"], SW_ARM_ITERS,
+            plain=False)
+        log(f"phase 9d {tag} timing from the arm's chains, 256 rounds: "
+            f"kernel {ms:.4f} ms per 16-round launch "
+            f"({[round(t, 4) for t in k_runs]}); bound {bound[0]:.4f} ms "
+            f"({bound[1]}: {bound[2]}), kernel at {bound[0] / ms:.1%} of "
+            f"it; on {CARD}")
+
+        ref = jax_runs[tag]
+
+        def band(r, k):
+            return " / ".join(f"{r['bands'][k][q]:.4f}"
+                              for q in ("q10", "q50", "q90"))
+
+        bands = "; ".join(f"{k} {band(res, k)} (example {band(ref, k)})"
+                          for k in ("sigma", "z", "x", "tau"))
+        log(f"phase 9d {tag} statistics over {SW_ARM_ITERS} draws x {C} "
+            f"chains (reported, not gated, at this depth): split-Rhat all "
+            f"coordinates {res['max_split_rhat_all_coords']:.4f} (example "
+            f"{ref['max_split_rhat_all_coords']:.4f} over "
+            f"{ref['stamp']['iters']} draws x {ref['stamp']['chains']}); "
+            f"bands q10 / q50 / q90: {bands}; band gap to the example's arm "
+            f"{swx.band_gap(res, ref):.4f}")
+
+    # the harness's calls each pack their state, which copies the ring
+    R, Cr = SW_RING
+    st0 = mk.init_state(q0[:Cr], h[:Cr], dl[:Cr], target=target, cfg=cfg,
+                        warmup=None, num_iter=R, diag_rows=8)
+    copies = []
+    for _ in range(3):
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        # the launches queue behind a device sleep: at ~0.06 ms a kernel
-        # takes less than the host's run_rounds call, and the events
-        # would time the host
-        torch.cuda._sleep(SLEEP_CYCLES)
         e0.record()
-        for i in range(periods):
-            fn(banks, i * mk.FLUSH_EVERY, spec)
+        banks = rk.pack(st0)
         e1.record()
         torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / periods, banks
-
-    times = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "kernel", "plain"):
-        fn = rk.run_rounds if name == "kernel" else rk.run_rounds_plain
-        t, banks = timed(fn, 16 if name == "kernel" else 2)
-        times[name].append(t)
-        if name == "kernel":
-            after = banks
-    rk.launches = counted
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    bound = _bound(rk, rk.pack(st0), after, 16, None, SW_FLOPS_PER_COORD)
-    log(f"phase 9b timing: Stock-Watson C={C} D={D} f32, 256 rounds: kernel "
-        f"{ms:.4f} ms per 16-round launch "
-        f"({[round(t, 4) for t in times['kernel']]}), plain {plain_ms:.3f} ms "
-        f"({[round(t, 3) for t in times['plain']]}); bound {bound[0]:.4f} ms "
-        f"({bound[1]}: {bound[2]}), kernel at {bound[0] / ms:.1%} of it; on "
-        f"{CARD}")
-    return dict(launches=launches, max_abs_err=f32_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+        copies.append(e0.elapsed_time(e1))
+        del banks
+    copy = min(copies)
+    call = swx.ROUNDS / mk.FLUSH_EVERY * 1e3 * max(wall_per_launch)
+    log(f"phase 9d ring copy: packing a state whose ring holds {R} draws x "
+        f"{Cr} chains x {D} (f32, {st0.samples.nbytes / 1e9:.2f} GB) takes "
+        f"{copy:.3f} ms ({[round(t, 3) for t in copies]}) by CUDA events, "
+        f"{copy / call:.2%} of a {swx.ROUNDS}-round call at 9d's "
+        f"{1e3 * max(wall_per_launch):.4f} ms of wall per launch; on {CARD}")
+    del st0
 
 
 def phase_modes(tw, rk, dev):

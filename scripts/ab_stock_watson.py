@@ -62,7 +62,12 @@ cfg = tw.WalnutsConfig(m=cs.SW_M, integrator="adapt_leapfrog_d",
                        igr=tw.IntegratorConfig(min_c=3))
 sw = tw.targets.stock_watson(proper=True)
 D = sw.dim
-mode, _ = cs._sw_find_mode(sw, dev)
+try:
+    from walnuts_tpu_torch.examples.stock_watson import find_mode
+    mode, _ = find_mode(sw, steps=cs.SW_ADAM_STEPS, lr=cs.SW_ADAM_LR,
+                        device=dev)
+except ImportError:  # a checkout from before the example harness
+    mode, _ = cs._sw_find_mode(sw, dev)
 g = torch.Generator(device=dev).manual_seed(0)
 q_sw = mode[None] + 0.5 * torch.randn(C, D, generator=g, device=dev)
 q_gauss = 0.5 * torch.randn(C, D, generator=g, device=dev)
