@@ -40,7 +40,17 @@ for bit, 10c holds the native C++ engine (the CPU oracle) against the
 fused engine on the card, and 10d holds what the kernel does not fuse
 against the CPU: a summary of the user's own (``bench.py``'s, as a
 function), which the kernel stages for torch to map, and ``smile``, a
-target without a fused gradient.  Phase 11 runs such targets through
+target without a fused gradient.  10e runs the scan engine on a (2, 2)
+``(chains, dim)`` mesh of four gloo ranks on the card (every sum over D
+all-reduced over a rank's dim group): (a) float64 funnel(11), split 6 +
+5, against one process on the card, under EXACT without adaptation and
+ADAPTIVE with pooled warmup; (b) 6b's run at the README width
+(funnel(101) split 51 + 50) for a few transitions, with its s per
+transition beside 6b's, its dim-group collectives per transition and
+their ms, its stop codes and depths.  10f runs the streaming engine
+(both draws), generic NUTS and the multinomial sampler with their
+chains over two ranks against one process on the card, under EXACT.
+Phase 11 runs targets without a fused gradient through
 the kernel's external-gradient instantiation (a period is ``16 *
 micro_unroll + 1`` segment launches with the target's torch
 ``logp_grad`` between them, captured once as a CUDA graph and
@@ -148,6 +158,7 @@ def main():
     phase_ranks_main(tw, mk, rk, dev, main_run)
     phase_native(tw, mk, rk, dev)
     phase_card_route(tw, mk, rk, dev)
+    phase_dim_split(tw, rk, dev, scan_s_per_it)
     ext = phase_external(tw, mk, rk, dev, warm, main_run, ext_attrs)
     kernel = {"route": "cuda",
               "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
@@ -1842,6 +1853,250 @@ def phase_card_route(tw, mk, rk, dev):
         f"{ms['own']:.4f} ms per launch against omega_sumsq in the kernel "
         f"{ms['omega_sumsq']:.4f} ms (wall, best of 2); positions, counts "
         f"and grads equal, draws within {s_err:.3e}; on {CARD}")
+
+
+# ---------------------------------------------------------------------------
+# phases 10e-10f: the scan engine on a (chains, dim) mesh, and the
+# streaming engine and the isokinetic line with their chains over ranks
+# ---------------------------------------------------------------------------
+
+# 10e(b) runs this many transitions of 6b's run (the README width, from
+# 6b's start) on a (2, 2) mesh of gloo ranks sharing the card, and times
+# this many dim-group all-reduces at its shape.
+DIM_ITERS, DIM_COLL_REPS = 3, 200
+
+
+def _dim_exact_runs(tw, dev, mesh=None):
+    """10e(a): float64 funnel(11), 16 chains (columns 6 + 5 on a dim
+    split), m=5, R2P, 5 transitions without adaptation, then 5 of pooled
+    warmup; each run's samples, diagnostics, final H and delta and final
+    positions, joined over ``mesh``'s axes (whole without one)."""
+    import torch
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.diagnostics import gather_blocks
+
+    C, D = 16, 11
+    g = torch.Generator(device="cpu").manual_seed(77)
+    q0 = (0.5 * torch.randn(C, D, generator=g, dtype=torch.float64)).to(dev)
+    q = parallel.shard_chains_dim(q0, mesh)
+    out = {}
+    for name, warmup in (("fixed", tw.WarmupConfig(warmup_iter=0)),
+                         ("pooled", tw.WarmupConfig(warmup_iter=5,
+                                                    pooled=True))):
+        s, d, st = tw.run_walnuts(
+            4, q, target=tw.targets.funnel(D), cfg=tw.WalnutsConfig(m=5),
+            warmup=warmup, num_iter=5, h0=0.4, delta0=0.15, device=dev,
+            mesh=mesh)
+        out[name] = [gather_blocks(s, mesh), gather_blocks(d, mesh,
+                                                           cols=False),
+                     gather_blocks(st.h, mesh, 0, cols=False),
+                     gather_blocks(st.delta, mesh, 0, cols=False),
+                     gather_blocks(st.q, mesh, 0)]
+    return out
+
+
+def _part_b_runs(tw, dev, mesh=None):
+    """10f: float64 runs of the streaming engine (hash and global draws;
+    funnel(11), 16 chains, m=5, R2P, per-chain tuning, 10 transitions),
+    generic NUTS (isokinetic kernel, std_gauss(5), 16 chains, m=5, 10
+    iterations) and the multinomial sampler (isokinetic, L=12, 12 warmup
+    + 2 iterations), each chain's results joined over ``mesh``."""
+    import numpy as np
+    import torch
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.diagnostics import gather_chains
+
+    sp, C = tw.sampler, 16
+    rng = np.random.default_rng(8)
+    q11 = torch.from_numpy(0.5 * rng.normal(size=(C, 11))).to(dev)
+    q5 = torch.from_numpy(0.8 * rng.normal(size=(C, 5))).to(dev)
+    h = torch.linspace(0.25, 0.5, C, dtype=torch.float64, device=dev)
+    dl = torch.linspace(0.08, 0.3, C, dtype=torch.float64, device=dev)
+    q11, q5, h, dl = parallel.shard_chains((q11, q5, h, dl), mesh)
+    out = {}
+    for rng_mode in ("hash", "global"):
+        s, d, qf = sp.run_walnuts_streaming(
+            5, q11, h, dl, target=tw.targets.funnel(11),
+            cfg=tw.WalnutsConfig(m=5), num_iter=10, rng=rng_mode,
+            device=dev, mesh=mesh)
+        out[f"streaming {rng_mode}"] = [gather_chains(s, mesh),
+                                        gather_chains(d, mesh),
+                                        parallel.gather_rows(qf, mesh)]
+    s, d = sp.run_generic_nuts(
+        11, q5, target=tw.targets.std_gauss(5), kernel=sp.IsokineticKernel(),
+        h_macro=0.5, delta=0.1, num_iter=10, m=5, device=dev, mesh=mesh)
+    out["generic NUTS"] = [gather_chains(s, mesh), gather_chains(d, mesh)]
+    s, d, (hm, dm) = sp.run_multinomial(
+        17, q5, target=tw.targets.std_gauss(5), kernel=sp.IsokineticKernel(),
+        cfg=sp.MultinomialConfig(l_orbit=12), h0=0.6, delta0=0.2,
+        num_iter=14, warmup_iter=12, device=dev, mesh=mesh)
+    out["multinomial"] = [gather_chains(s, mesh), gather_chains(d, mesh),
+                          parallel.gather_rows(hm, mesh),
+                          parallel.gather_rows(dm, mesh)]
+    return out
+
+
+def rank_dim_split():
+    """10e and 10f, on each rank of a (2, 2) mesh: (a) the float64 runs
+    on the rank's block, (b) 6b's run at the README width for
+    ``DIM_ITERS`` transitions with its dim-group collectives counted and
+    then timed, and 10f's runs on the rank's chains of the mesh's chains
+    axis (two ranks; both columns of the mesh run them alike)."""
+    import torch
+    import walnuts_tpu_torch as tw
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.diagnostics import gather_blocks
+    from walnuts_tpu_torch.parallel import mesh as pm
+    from walnuts_tpu_torch.sampler import round_kernel as rk
+
+    def host(tree):
+        return {k: [t.cpu() for t in v] for k, v in tree.items()}
+
+    dev = _rank_device()
+    mesh = parallel.make_mesh2(2, 2)
+    out = dict(exact=host(_dim_exact_runs(tw, dev, mesh)),
+               part_b=host(_part_b_runs(tw, dev, mesh["chains"])),
+               coords=tuple(mesh.get_coordinate()))
+
+    C, D = SCAN_CHAINS, SCAN_DIM
+    g = torch.Generator(device=dev).manual_seed(0)
+    q0 = 0.1 * torch.randn(C, D, generator=g, device=dev)    # 6b's start
+    q = parallel.shard_chains_dim(q0, mesh)
+    pm.dim_collectives = rk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, d, st = tw.run_walnuts(
+        7, q, target=tw.targets.funnel(D),
+        cfg=tw.WalnutsConfig(m=10, integrator="adapt_leapfrog_r2p"),
+        warmup=tw.WarmupConfig(warmup_iter=SCAN_WARMUP), num_iter=DIM_ITERS,
+        h0=0.3, delta0=0.3, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    out.update(wall=time.perf_counter() - t0, coll=pm.dim_collectives,
+               launches=rk.launches, block=tuple(q.shape),
+               diag_local=d.cpu())
+    s, d = gather_blocks(s, mesh), gather_blocks(d, mesh, cols=False)
+    codes = _scan_check("10e(b)", s, d, C, D)
+    out.update(codes={c: int((d[..., 19] == c).sum()) for c in codes},
+               grads=int(d[..., 6].double().sum() + d[..., 7].double().sum()),
+               depth_mean=float(d[..., 20].double().mean()),
+               depth_max=int(d[..., 20].max()), c_max=int(d[..., 22].max()))
+
+    # one dim-group all-reduce at this shape: the stacked pair of
+    # per-chain partial sums that the U-turn checks and the funnel's
+    # gradient send
+    x = torch.ones(2, q.shape[0], device=dev)
+    with parallel.dim_split(mesh, D):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIM_COLL_REPS):
+            parallel.dim_sum(x[0], x[1])
+        torch.cuda.synchronize()
+    out["coll_ms"] = (time.perf_counter() - t0) / DIM_COLL_REPS * 1e3
+    return out
+
+
+def _within(name, want, got, contract, int_cols=()):
+    """Ranks' joined tensor ``got`` against one process's ``want``:
+    integer columns equal, all within ``contract``; returns the largest
+    difference and whether the bits are equal."""
+    import torch
+
+    err = _assert_same(name, want, got, contract, int_cols)
+    return err, torch.equal(want.cpu(), got.cpu())
+
+
+def phase_dim_split(tw, rk, dev, scan_s_per_it):
+    """10e: the scan engine on a (2, 2) mesh of four gloo ranks on the
+    card (chains over the mesh's rows, columns over its columns, every
+    sum over D all-reduced over the dim group): (a) float64 against one
+    process on the card, under EXACT without adaptation and ADAPTIVE
+    with pooled warmup; (b) 6b's run at the README width (funnel(101)
+    split 51 + 50, 4096 chains, m=10, R2P, float32) for ``DIM_ITERS``
+    transitions: s per transition beside 6b's, dim-group collectives per
+    transition and their ms, stop codes and depths; the gate is finite
+    results and valid stop codes.  10f: the streaming engine (both
+    draws), generic NUTS and the multinomial sampler over two ranks
+    against one process on the card, under EXACT."""
+    import torch
+    from walnuts_tpu_torch.parallel import run_ranks
+    from walnuts_tpu_torch.utils.parity import (ADAPTIVE, ENERGY_RANGE,
+                                                ENERGY_RANGE_COL, EXACT)
+
+    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    one_exact = _dim_exact_runs(tw, dev)
+    one_b = _part_b_runs(tw, dev)
+    t0 = time.perf_counter()
+    outs = run_ranks(rank_dim_split, 4, timeout=600, device=RANKS_ON)
+    wall = time.perf_counter() - t0
+
+    names = ("samples", "diagnostics", "H", "delta", "q")
+    for run, contract, what in (("fixed", EXACT, "without adaptation"),
+                                ("pooled", ADAPTIVE, "of pooled warmup")):
+        errs, bits = [], []
+        for rank in outs:
+            for name, w, g in zip(names, one_exact[run], rank["exact"][run]):
+                ic = int_cols if name == "diagnostics" else ()
+                if ic and contract is ADAPTIVE:   # column 17 on its own
+                    _assert_same("10e(a) energy range",
+                                 w[..., ENERGY_RANGE_COL],
+                                 g[..., ENERGY_RANGE_COL], ENERGY_RANGE)
+                    cols = [c for c in range(24) if c != ENERGY_RANGE_COL]
+                    w, g = w[..., cols], g[..., cols]
+                    ic = [cols.index(c) for c in int_cols]
+                e, b = _within(f"10e(a) {run} {name}", w, g, contract, ic)
+                errs.append(e)
+                bits.append(b)
+        log(f"phase 10e(a) scan engine on a (2, 2) mesh of gloo ranks on "
+            f"the card, f64 funnel(11) C=16 (columns 6 + 5) m=5 R2P, 5 "
+            f"transitions {what}: every rank's joined run == one process "
+            f"on the card within "
+            f"{'EXACT' if contract is EXACT else 'ADAPTIVE'} (rtol "
+            f"{contract['rtol']:g}, atol {contract['atol']:g}), integer "
+            f"diagnostics equal, max abs diff {max(errs):.3e}, bitwise "
+            f"{all(bits)}")
+
+    # (b): the pairs of a dim group hold the same rows, bit for bit
+    for a, b in ((0, 1), (2, 3)):
+        if not torch.equal(outs[a]["diag_local"], outs[b]["diag_local"]):
+            raise AssertionError(f"10e(b): ranks {a} and {b} (one dim "
+                                 "group) hold different diagnostics")
+    r0 = outs[0]
+    coll = [o["coll"] / DIM_ITERS for o in outs]
+    s_it = max(o["wall"] for o in outs) / DIM_ITERS
+    log(f"phase 10e(b) scan engine on a (2, 2) mesh, README width: "
+        f"funnel({SCAN_DIM}) C={SCAN_CHAINS} m=10 R2P f32 from 6b's start, "
+        f"blocks {r0['block']} (chains x columns) per rank, "
+        f"{DIM_ITERS} transitions of per-chain warmup in "
+        f"{max(o['wall'] for o in outs):.2f} s = {s_it:.3f} s per "
+        f"transition (6b, one process, {SCAN_WARMUP + SCAN_ITERS} "
+        f"transitions: {scan_s_per_it:.3f} s per transition); dim-group "
+        f"collectives per transition per rank "
+        f"{[round(c, 1) for c in coll]}, one all-reduce of 2 x "
+        f"{SCAN_CHAINS // 2} f32 (gloo through the host, "
+        f"{DIM_COLL_REPS} times) "
+        f"{[round(o['coll_ms'], 4) for o in outs]} ms per rank; stop codes "
+        f"{r0['codes']}, orbit depth mean {r0['depth_mean']:.2f}, worst "
+        f"{r0['depth_max']}, worst refinement {r0['c_max']}; {r0['grads']} "
+        f"grad evals; round-kernel launches per rank "
+        f"{[o['launches'] for o in outs]}; {wall:.1f} s with the ranks' "
+        f"start and 10f; on {CARD}")
+
+    for name, want in one_b.items():
+        errs, bits = [], []
+        for rank in (outs[0], outs[1]):     # one rank per mesh column
+            for i, (w, g) in enumerate(zip(want, rank["part_b"][name])):
+                ic = int_cols if name.startswith("streaming") and i == 1 \
+                    else ()
+                e, b = _within(f"10f {name} output {i}", w, g, EXACT, ic)
+                errs.append(e)
+                bits.append(b)
+        log(f"phase 10f {name} over 2 gloo ranks on the card, f64, 8 "
+            f"chains per rank: joined == one process on the card within "
+            f"EXACT (rtol {EXACT['rtol']:g}, atol {EXACT['atol']:g}), max "
+            f"abs diff {max(errs):.3e}, bitwise {all(bits)}")
+    if any(o["launches"] for o in outs):
+        raise AssertionError("10e(b): the scan engine launched the round "
+                             "kernel")
 
 
 # ---------------------------------------------------------------------------

@@ -259,4 +259,10 @@ def test_dryrun_multichip_four_ranks():
     assert report["ranks"] == 4 and report["rank"] == 0
     assert report["diag"] == (8, 24) and report["counts"] == (8,)
     assert report["draws"] == (4, 8, 7) and report["grads"] > 0
-    assert "ROADMAP" in report["dim_split"]
+    # the (chains, dim) step over a 2 x 2 mesh, joined over both axes,
+    # against the same step in one process (sums over D in another order)
+    dim_split = report["dim_split"]
+    assert dim_split["block"] == (2, 4)
+    assert dim_split["diag"].shape == (4, 24)
+    assert_parity(dim_split["one_process"], dim_split["diag"], EXACT,
+                  "dim-split diagnostics")

@@ -9,7 +9,8 @@ import torch.distributed as dist
 
 import walnuts_tpu_torch as tw
 from walnuts_tpu_torch import parallel
-from walnuts_tpu_torch.diagnostics import ess, gather_chains, rhat, split_rhat
+from walnuts_tpu_torch.diagnostics import (ess, gather_blocks, gather_chains,
+                                          rhat, split_rhat)
 
 
 def _np(x):
@@ -104,3 +105,135 @@ def fail_on_rank_one():
     if dist.get_rank() == 1:
         raise RuntimeError("rank one failed on purpose")
     dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the dim split: a 2 x 2 (chains, dim) mesh (tests/test_torch_dim_split.py)
+# ---------------------------------------------------------------------------
+
+def radius(q):
+    """A target's own generated quantities: ``(q_0, sum q^2)``."""
+    return torch.stack([q[..., 0], torch.sum(q * q, dim=-1)], dim=-1)
+
+
+def _dim_target(spec):
+    name, *args = spec
+    if name == "std_gauss_radius":
+        return tw.targets.std_gauss(*args, generated=radius)
+    return getattr(tw.targets, name)(*args)
+
+
+def _dim_scan(case, mesh):
+    """One ``run_walnuts`` case on this rank's block of the 2-D mesh,
+    joined over both axes, with this rank's own diagnostics block."""
+    target = _dim_target(case["target"])
+    inv_mass = case.get("inv_mass")
+    orbit = case.get("orbit", False)
+    cfg = tw.WalnutsConfig(
+        m=case["m"], integrator=case["integrator"],
+        use_inv_mass=inv_mass is not None, record_orbit_stats=orbit,
+        igr=tw.ops.IntegratorConfig(fp_newton=case.get("newton", False)))
+    out = tw.run_walnuts(
+        case["seed"], parallel.shard_chains_dim(case["q0"], mesh),
+        target=target, cfg=cfg,
+        warmup=tw.WarmupConfig(warmup_iter=case["warmup_iter"],
+                               pooled=case["pooled"]),
+        num_iter=case["num_iter"], h0=case["h0"], delta0=case["delta0"],
+        inv_mass=inv_mass, collect_orbit_stats=orbit, device="cpu",
+        mesh=mesh)
+    s, d, st = out[:3]
+    cols = target._generated is None     # generated quantities by column
+
+    def rows(x, chain_dim=0):
+        return _np(gather_blocks(x, mesh, chain_dim, cols=False))
+
+    state = {f: rows(getattr(st, f)) for f in ("lp", "h", "delta",
+                                                 "err_facs")}
+    state.update({f: _np(gather_blocks(getattr(st, f), mesh, 0))
+                  for f in ("q", "g")})
+    state["p2"] = {f: rows(getattr(st.p2, f)) for f in st.p2._fields}
+    state["iter_n"] = st.iter_n
+    res = dict(samples=_np(gather_blocks(s, mesh, 1, cols=cols)),
+               diag=rows(d, 1), diag_local=_np(d), state=state,
+               width=st.q.shape[-1])
+    if orbit:
+        res["orbit"] = [_np(gather_blocks(x, mesh, 1, cols=cols))
+                        for x in out[3:]]
+    return res
+
+
+def _part_b(case, mesh):
+    """One chain-split run of the streaming engine, generic NUTS or the
+    multinomial sampler on this rank's chains of a 1-D mesh, joined."""
+    kind = case["kind"]
+    sp = tw.sampler
+    if kind == "streaming":
+        q, h, dl = parallel.shard_chains(
+            (case["q0"], case["h"], case["delta"]), mesh)
+        out = sp.run_walnuts_streaming(
+            case["seed"], q, h, dl, target=_dim_target(case["target"]),
+            cfg=tw.WalnutsConfig(m=case["m"]), num_iter=case["num_iter"],
+            rng=case["rng"], device="cpu", mesh=mesh)
+        return [_np(gather_chains(out[0], mesh)),
+                _np(gather_chains(out[1], mesh)),
+                _np(parallel.gather_rows(out[2], mesh))]
+    q = parallel.shard_chains(case["q0"], mesh)
+    if kind == "generic":
+        out = sp.run_generic_nuts(
+            case["seed"], q, target=_dim_target(case["target"]),
+            kernel=sp.IsokineticKernel(), h_macro=case["h"],
+            delta=case["delta"], num_iter=case["num_iter"], m=case["m"],
+            device="cpu", mesh=mesh)
+        return [_np(gather_chains(x, mesh)) for x in out]
+    s, d, (h, dl) = sp.run_multinomial(
+        case["seed"], q, target=_dim_target(case["target"]),
+        kernel=sp.IsokineticKernel(),
+        cfg=sp.MultinomialConfig(l_orbit=case["l_orbit"]), h0=case["h"],
+        delta0=case["delta"], num_iter=case["num_iter"],
+        warmup_iter=case["warmup_iter"], device="cpu", mesh=mesh)
+    return [_np(gather_chains(s, mesh)), _np(gather_chains(d, mesh)),
+            _np(parallel.gather_rows(h, mesh)),
+            _np(parallel.gather_rows(dl, mesh))]
+
+
+def dim_split(scan_cases, part_b_cases):
+    """Every case of the dim-split tests on a 2 x 2 mesh: the scan
+    engine's cases on the rank's (chain rows, column block), the Part B
+    engines' on the rank's chains of the mesh's chains axis (two ranks;
+    each column of the mesh runs them alike), and the errors of what a
+    dim split does not take."""
+    torch.set_num_threads(1)
+    mesh = parallel.make_mesh2(2, 2)
+    out = {"block": parallel.dim_block(mesh, 11),
+           "scan": {k: _dim_scan(c, mesh) for k, c in scan_cases.items()},
+           "part_b": {k: _part_b(c, mesh["chains"])
+                      for k, c in part_b_cases.items()}}
+    errors = {}
+    newton = dict(scan_cases["funnel_adapt_implicit_midpoint_d"],
+                  newton=True, num_iter=1)
+    q = np.zeros((8, 5))
+    for name, call in (
+            ("newton", lambda: _dim_scan(newton, mesh)),
+            ("streaming", lambda: tw.sampler.run_walnuts_streaming(
+                1, q, np.full(8, 0.3), np.full(8, 0.3),
+                target=tw.targets.std_gauss(5), cfg=tw.WalnutsConfig(m=3),
+                num_iter=1, device="cpu", mesh=mesh)),
+            ("generic", lambda: tw.sampler.run_generic_nuts(
+                1, q, target=tw.targets.std_gauss(5),
+                kernel=tw.sampler.IsokineticKernel(), h_macro=0.3,
+                delta=0.3, num_iter=1, device="cpu", mesh=mesh)),
+            ("multinomial", lambda: tw.sampler.run_multinomial(
+                1, q, target=tw.targets.std_gauss(5), num_iter=1,
+                device="cpu", mesh=mesh)),
+            ("fused", lambda: tw.run_walnuts_fused(
+                1, q, 0.3, 0.3, target=tw.targets.std_gauss(5),
+                cfg=tw.WalnutsConfig(m=3), num_iter=1, device="cpu",
+                mesh=mesh))):
+        try:
+            call()
+        except NotImplementedError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    out["rank"], out["coords"] = dist.get_rank(), tuple(
+        mesh.get_coordinate())
+    return out

@@ -20,7 +20,10 @@ mode (``sampler.walnuts_pseudo``) and the Monge-metric integrators
 (``targets.stock_watson``), whose gradient the round kernel fuses.
 
 Chains split over ``torch.distributed`` ranks through :mod:`.parallel`
-(``mesh=`` on ``run_walnuts`` and ``run_walnuts_fused``); :mod:`.native`
+(``mesh=`` on ``run_walnuts``, ``run_walnuts_fused``,
+``sampler.run_walnuts_streaming``, ``sampler.run_generic_nuts`` and
+``sampler.run_multinomial``), and ``run_walnuts`` also takes a
+``(chains, dim)`` mesh that splits each chain's columns; :mod:`.native`
 loads the native C++ engine, the CPU oracle; :mod:`.entry` holds the
 counterparts of ``__graft_entry__.py``'s ``entry`` and
 ``dryrun_multichip``.

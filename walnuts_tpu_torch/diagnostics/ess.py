@@ -8,7 +8,7 @@ positive-sequence truncation, cross-chain variance pooling; ESS per
 
 import torch
 
-from ..parallel.mesh import gather_rows
+from ..parallel.mesh import gather_cols, gather_rows
 
 
 def _autocov(x):
@@ -94,3 +94,16 @@ def gather_chains(draws, mesh):
     equal the single-process values (``draws`` itself without a mesh
     that splits the chains)."""
     return gather_rows(draws, mesh, dim=1)
+
+
+def gather_blocks(x, mesh, chain_dim: int = 1, cols: bool = True):
+    """Join a rank's block of a run on a ``(chains, dim)`` mesh into the
+    whole batch's tensor on every rank: with ``cols``, the column blocks
+    of the rank's dim group first (samples of an identity ``generated``,
+    ``q``, ``g``), then the chain rows along ``chain_dim`` in rank order
+    (``cols=False`` for outputs whole per row: diagnostics, per-chain
+    state, a target's own generated quantities).  On a 1-D mesh this is
+    :func:`gather_chains` (``chain_dim`` 1)."""
+    if cols:
+        x = gather_cols(x, mesh)
+    return gather_rows(x, mesh, dim=chain_dim)

@@ -6,7 +6,10 @@
                          running one chain-split sampling step and one
                          round-capped fused invocation on its block of
                          a batch split over a 1-D mesh; the shapes are
-                         checked on the gathered results.
+                         checked on the gathered results.  With four
+                         ranks or more, one scan-engine step on a 2-D
+                         ``(chains, dim)`` mesh, held to the one-process
+                         step.
 """
 
 import torch
@@ -58,10 +61,12 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0,
     ``device="cpu"``, one card per rank (NCCL) where the host has
     enough, else all on one card (gloo).
 
-    The 2-D ``(chains, dim)`` case (``n >= 4`` and even) places a batch
-    on ``make_mesh2`` and checks each rank's block; its engine step waits
-    for the dim split (``parallel.mesh.DIM_SPLIT_ITEM``), which the
-    report says."""
+    The 2-D ``(chains, dim)`` case (``n >= 4`` and even) runs one
+    ``sampler_step`` (funnel(8), 4 chains, m=3, float64) on a
+    ``make_mesh2(n/2, 2)`` block, joins its diagnostics and positions
+    over both axes and holds them to the same step in one process under
+    ``EXACT`` (the sums over D are taken in another order); the report
+    carries both diagnostics."""
     from .parallel import run_ranks
 
     if resolve_device(device).type == "cuda":
@@ -77,11 +82,12 @@ def _dryrun_rank(device):
     import torch.distributed as dist
 
     from . import parallel
-    from .diagnostics import gather_chains
-    from .sampler.driver import init_state, run_walnuts, sampler_step
+    from .diagnostics import gather_blocks, gather_chains
+    from .sampler.driver import init_state, sampler_step
     from .sampler.megakernel import run_walnuts_fused
     from .sampler.transition import WalnutsConfig
     from .utils import threefry
+    from .utils.parity import EXACT, assert_parity
 
     n = dist.get_world_size()
     dev, _ = parallel.rank_layout(device, n, dist.get_rank())
@@ -113,22 +119,31 @@ def _dryrun_rank(device):
                   draws=tuple(draws.shape),
                   grads=parallel.reduce_int(ng, mesh, "sum"))
 
-    # tensor-parallel case: [C, D] over a 2-D (chains, dim) mesh; the
-    # placement runs, the engine step waits for the dim split
+    # tensor-parallel case: [C, D] over a 2-D (chains, dim) mesh; every
+    # sum over D is all-reduced over the rank's dim group
     if n >= 4 and n % 2 == 0:
-        target2, cfg2, warmup2, q2 = _mk(dim=8, chains=4, m=3, device=dev)
+        target2, cfg2, warmup2, q2 = _mk(dim=8, chains=4, m=3,
+                                         dtype=torch.float64, device=dev)
+        key = threefry.PRNGKey(1, dev)
+        _, one = sampler_step(key, init_state(target2, q2, h0=0.3,
+                                              delta0=0.3, warmup=warmup2),
+                              target=target2, cfg=cfg2, warmup=warmup2)
         mesh2 = parallel.make_mesh2(n // 2, 2)
         block = parallel.shard_chains_dim(q2, mesh2)
-        assert tuple(block.shape) == (4 // (n // 2), 4), block.shape
-        try:
-            run_walnuts(1, block, target=target2, cfg=cfg2, warmup=warmup2,
-                        num_iter=1, h0=0.3, delta0=0.3, device=dev,
-                        mesh=mesh2)
-        except NotImplementedError as e:
-            report["dim_split"] = str(e)
-        else:
-            raise AssertionError("the dim-split step ran; this dry run "
-                                 "should now check its results")
+        state2 = init_state(target2, block, h0=0.3, delta0=0.3,
+                            warmup=warmup2, mesh=mesh2)
+        new2, res2 = sampler_step(key, state2, target=target2, cfg=cfg2,
+                                  warmup=warmup2, mesh=mesh2)
+        diag2 = gather_blocks(res2.diagnostics, mesh2, 0, cols=False).cpu()
+        q_new = gather_blocks(new2.q, mesh2, 0).cpu()
+        assert tuple(diag2.shape) == (4, 24), diag2.shape
+        assert_parity(one.diagnostics.cpu().numpy(), diag2.numpy(), EXACT,
+                      "dim-split diagnostics")
+        assert_parity(one.q.cpu().numpy(), q_new.numpy(), EXACT,
+                      "dim-split positions")
+        report["dim_split"] = dict(block=tuple(block.shape),
+                                   diag=diag2.numpy(),
+                                   one_process=one.diagnostics.cpu().numpy())
     report["rank"] = dist.get_rank()
     return report
 

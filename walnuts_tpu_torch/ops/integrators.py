@@ -16,6 +16,10 @@ a Python loop that checks ``any(~done)`` once per level (one host sync).
 
 Where the JAX integrators take a PRNG key, these take ``coin``: R2P's
 pre-drawn uniform, which the others ignore (``None`` is fine there).
+
+Inside a dim split (:mod:`..parallel.mesh`) every energy, per-chain
+error and per-chain flag is reduced over the dim group, so each rank of
+a group sweeps the same levels.
 """
 
 import math
@@ -24,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import dim_all, dim_any, dim_sum
 from ..utils.constants import LOG_ZERO
 from ..utils.tree import tree_where
 from .leapfrog import (MultistepResult, PhasePoint, implicit_midpoint_step,
@@ -168,8 +173,8 @@ def fixed_leapfrog(coin, target, q, v, g, lp, h0, h_macro, xi, delta,
     start = _oriented_start(q, v, g, lp, xi)
     hh = torch.where(active, h_macro, 0.0)
     end, _, _, _ = leapfrog_step(target, start, hh, inv_mass)
-    h_end = -end.lp + 0.5 * torch.sum(
-        end.v * (end.v if inv_mass is None else inv_mass * end.v), dim=-1)
+    h_end = -end.lp + 0.5 * dim_sum(torch.sum(
+        end.v * (end.v if inv_mass is None else inv_mass * end.v), dim=-1))
     igr = h_macro * torch.clamp(torch.abs(h0 - h_end),
                                 min=1.0e-10) ** (-1.0 / 3.0)
     zi = _zeros_i(h0)
@@ -309,12 +314,12 @@ def _rescaled_sweep(target, q_from, g_from, v_from, h_macro, h0_ref, delta,
         lp1, g1 = target.logp_grad(q1)
         gb1 = sd * g1
         v1 = vh + 0.5 * h * gb1
-        ham1 = -lp1 + 0.5 * torch.sum(v1 * v1, dim=-1)
+        ham1 = -lp1 + 0.5 * dim_sum(torch.sum(v1 * v1, dim=-1))
         gb_mean = 0.5 * (torch.abs(gb) + torch.abs(gb1))
 
         finite = torch.isfinite(ham1)
         too_big = gb_mean > thresh
-        any_big = torch.any(too_big, dim=-1)
+        any_big = dim_any(torch.any(too_big, dim=-1))
         e_bad = torch.abs(h0_ref - ham1) > delta
         accept = finite & ~any_big & ~e_bad
 
@@ -334,7 +339,8 @@ def _rescaled_sweep(target, q_from, g_from, v_from, h_macro, h0_ref, delta,
                         sred))
         done_new = done | take
         if sred_match is not None:
-            matched = ~done_new & torch.all(sred_new == sred_match, dim=-1)
+            matched = ~done_new & dim_all(
+                torch.all(sred_new == sred_match, dim=-1))
             i_acc = torch.where(matched, c + 1, i_acc)
             done_new = done_new | matched
         sred = torch.where(done[:, None], sred, sred_new)
@@ -364,7 +370,7 @@ def adapt_rescaled_leapfrog_d(coin, target, q, v, g, lp, h0, h_macro, xi,
     i_b = torch.where(i_f > 0, i_b0, i_f)
     sred_b = torch.where(bw_active[:, None], sred_b, sred_f)
 
-    mismatch = torch.any(sred_b != sred_f, dim=-1)
+    mismatch = dim_any(torch.any(sred_b != sred_f, dim=-1))
     lwt = torch.where(mismatch, LOG_ZERO, 0.0).to(h0.dtype)
     igr = torch.ones_like(h0)
     return _finish(start, fw_state, xi, fw_h, active, lp, h0,

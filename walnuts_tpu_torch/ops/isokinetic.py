@@ -79,17 +79,30 @@ def mcstate_to_numpy(st: MCState) -> dict:
     return {f: getattr(st, f).detach().cpu().numpy() for f in MCState._fields}
 
 
-def refresh_u(key, shape, dtype=torch.float32):
+def draw_window(shape, block=None):
+    """``(global shape, rows)`` of a draw for a ``shape`` batch that is
+    rows ``c0 .. c0+C-1`` of ``C_total`` chains (``block = (c0,
+    C_total)``; ``(shape, None)`` without one)."""
+    if block is None:
+        return tuple(shape), None
+    c0, C_total = block
+    return (C_total,) + tuple(shape[1:]), (c0, c0 + shape[0])
+
+
+def refresh_u(key, shape, dtype=torch.float32, rows=None):
     """Full momentum refresh from the threefry key ``key``: ``u``
-    uniform on the unit sphere."""
-    p = threefry.normal(key, shape, dtype)
+    uniform on the unit sphere (``rows=(r0, r1)``: rows ``r0 .. r1`` of
+    ``shape``'s leading axis alone, as in :func:`..utils.threefry.normal`)."""
+    p = threefry.normal(key, shape, dtype, rows)
     return p / _norm(p, keepdim=True)
 
 
-def partial_refresh_u(key, u, c1):
+def partial_refresh_u(key, u, c1, block=None):
     """Partial refresh mixing the old direction with a fresh normal
-    draw (``microCanonical.py:34-38``)."""
-    z = threefry.normal(key, u.shape, u.dtype)
+    draw (``microCanonical.py:34-38``); ``block = (c0, C_total)`` when
+    ``u`` holds rows ``c0 ..`` of a batch of ``C_total``."""
+    shape, rows = draw_window(u.shape, block)
+    z = threefry.normal(key, shape, u.dtype, rows)
     z = z / torch.sqrt(torch.tensor(u.shape[-1], dtype=u.dtype,
                                     device=u.device))
     t = c1 * u + float(np.sqrt(1.0 - c1 ** 2)) * z

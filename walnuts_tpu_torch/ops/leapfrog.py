@@ -7,13 +7,16 @@ micro step sizes.  Chains whose counter ran out ride along masked, and
 their values are kept by ``torch.where``, never skipped.  JAX's
 ``lax.while_loop``s become Python loops: ``masked_multistep`` reads the
 largest step count once, the implicit-midpoint solve checks ``any(~done)``
-once per iteration (one host sync each).
+once per iteration (one host sync each).  Inside a dim split
+(:mod:`..parallel.mesh`) the per-chain errors and magnitudes are maxima
+over the dim group, so the ranks that share a chain stop together.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import NEWTON_DIM_SPLIT_ITEM, current_dim_split, dim_max
 from .hamiltonian import hamiltonian
 
 # 4th-order Yoshida composition coefficients
@@ -89,7 +92,7 @@ def leapfrog_flow_step(target, state: PhasePoint, hh, inv_mass=None):
     err = torch.maximum(err, torch.amax(torch.abs(qb - q_old), dim=-1))
     vb = -(-v2 + (h / 6.0) * (g_old + g2 + 4.0 * g_mid))
     err = torch.maximum(err, torch.amax(torch.abs(vb - v_old), dim=-1))
-    return new, err, _true(hh), 2
+    return new, dim_max(err), _true(hh), 2
 
 
 def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
@@ -103,15 +106,21 @@ def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
     chain whose step fails returns ``ok=False`` and a ``-inf`` density.
     The tolerance is floored at ``32 eps max(max|q|, 1)`` of the working
     dtype, so float32 chains can converge.  Newton mode solves with the
-    batched target Hessian.
+    batched target Hessian (a dense ``[D, D]`` per chain, which a dim
+    split does not take: it raises, naming ``NEWTON_DIM_SPLIT_ITEM``).
     """
+    if newton and current_dim_split() is not None:
+        raise NotImplementedError(
+            "the implicit midpoint's Newton mode solves with each chain's "
+            f"whole Hessian; under a dim split it waits for "
+            f"{NEWTON_DIM_SPLIT_ITEM}")
     h = hh[:, None]
     qq, vv, gg = state.q, state.v, state.g
     scale = 1.0 if inv_mass is None else inv_mass
     base = qq + h * (scale * vv)
     qt = base + 0.5 * h * h * (scale * gg)  # leapfrog guess
     eps = torch.finfo(qq.dtype).eps
-    q_mag = torch.clamp(torch.amax(torch.abs(qq), dim=-1), min=1.0)
+    q_mag = torch.clamp(dim_max(torch.amax(torch.abs(qq), dim=-1)), min=1.0)
     fp_tol = torch.maximum(torch.tensor(fp_tol, dtype=qq.dtype,
                                         device=qq.device), 32.0 * eps * q_mag)
 
@@ -132,7 +141,7 @@ def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
             qt_new = qt - torch.linalg.solve(hh2, resid[..., None])[..., 0]
         else:
             qt_new = base + 0.5 * h * h * (scale * gmp)
-        err = torch.amax(torch.abs(qt_new - qt), dim=-1)
+        err = dim_max(torch.amax(torch.abs(qt_new - qt), dim=-1))
         qt = torch.where(done[:, None], qt, qt_new)
         newly_conv = ~done & (err < fp_tol)
         diverged = ~done & (err > 1.1 * old_err)

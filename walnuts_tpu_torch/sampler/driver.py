@@ -13,11 +13,16 @@ Each chain runs its own adaptation, or with ``pooled=True`` every chain
 takes the batch median of the statistics.  With the chains split over
 the ranks of a mesh (``mesh=``), each rank draws its own rows of the
 whole batch's draws and the median is taken over the statistics of
-every rank, all-gathered in rank order, so rank r's results are its
-rows of the single-process run.  JAX's ``lax.scan`` becomes a
-Python loop.  The iteration counter ``iter_n`` is a host int, so the
-warmup test costs no device sync; a checkpoint stores it as an int32
-array, as JAX's does.
+every rank's chains, all-gathered in rank order over the chains axis,
+so rank r's results are its rows of the single-process run.  On a 2-D
+``(chains, dim)`` mesh a rank also holds only its window of columns
+(:func:`..parallel.mesh.dim_block`): the iteration runs inside
+:func:`..parallel.mesh.dim_split`, which reduces every sum over D over
+the rank's dim group, and the rank's results are its (chain rows,
+column block) of the single-process run's, within the sums' rounding.
+JAX's ``lax.scan`` becomes a Python loop.  The iteration counter
+``iter_n`` is a host int, so the warmup test costs no device sync; a
+checkpoint stores it as an int32 array, as JAX's does.
 """
 
 from typing import NamedTuple
@@ -25,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import chain_block, gather_rows, split
+from ..parallel.mesh import chain_block, chain_ranks, dim_split, gather_rows
 from ..utils import threefry
 from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
 from ..utils.p2 import P2State, p2_init, p2_quantile
@@ -89,10 +94,14 @@ def _median(x):
 
 
 def init_state(target, q0, h0=0.2, delta0=0.05,
-               warmup: WarmupConfig = WarmupConfig()) -> SamplerState:
+               warmup: WarmupConfig = WarmupConfig(),
+               mesh=None) -> SamplerState:
+    """A fresh state for the ``[C, D]`` positions ``q0`` (on a
+    ``(chains, dim)`` ``mesh``, this rank's block of them)."""
     C = q0.shape[0]
     dtype, dev = q0.dtype, q0.device
-    lp, g = target.logp_grad(q0)
+    with dim_split(mesh, target.dim):
+        lp, g = target.logp_grad(q0)
     return SamplerState(
         q=q0, lp=lp, g=g,
         h=torch.full((C,), h0, dtype=dtype, device=dev),
@@ -107,18 +116,20 @@ def init_state(target, q0, h0=0.2, delta0=0.05,
 def sampler_step(key, state: SamplerState, *, target, cfg: WalnutsConfig,
                  warmup: WarmupConfig, inv_mass=None, mesh=None):
     """One MCMC iteration plus the masked warmup adaptation; ``mesh`` as
-    in :func:`run_walnuts`."""
+    in :func:`run_walnuts` (``state`` is this rank's block)."""
     it = state.iter_n + 1  # 1-based, like the reference loop
     in_warmup = it <= warmup.warmup_iter
-    block = chain_block(mesh, state.q.shape[0]) if split(mesh) else None
+    C = state.q.shape[0]
+    block = chain_block(mesh, C) if chain_ranks(mesh) > 1 else None
 
     def median(x):  # the batch median, over every rank's chains
         return _median(gather_rows(x, mesh))
 
-    res = walnuts_transition(
-        key, state.q, state.lp, state.g, state.h, state.delta, state.p2,
-        in_warmup and warmup.adapt_h,
-        target=target, cfg=cfg, inv_mass=inv_mass, chain_block=block)
+    with dim_split(mesh, target.dim):
+        res = walnuts_transition(
+            key, state.q, state.lp, state.g, state.h, state.delta, state.p2,
+            in_warmup and warmup.adapt_h,
+            target=target, cfg=cfg, inv_mass=inv_mass, chain_block=block)
 
     delta = state.delta
     err_facs = state.err_facs
@@ -178,9 +189,15 @@ def run_walnuts(seed, q0=None, *, target, cfg: WalnutsConfig = WalnutsConfig(),
     is this rank's block of chains (:func:`..parallel.shard_chains`);
     the returned samples, diagnostics and state are this rank's rows of
     the single-process run's (:func:`..diagnostics.gather_chains`
-    joins them).
+    joins them).  On a ``(chains, dim)`` mesh
+    (:func:`..parallel.make_mesh2`) ``q0`` is this rank's (chain rows,
+    column block) (:func:`..parallel.shard_chains_dim`), ``inv_mass``
+    the whole ``[D]`` diagonal, and the rank returns its block: samples
+    and orbit statistics of an identity ``generated`` hold the rank's
+    columns, those of a target's own ``generated`` whole rows, as do
+    the diagnostics and the per-chain state (``q`` and ``g`` hold the
+    columns); :func:`..diagnostics.gather_blocks` joins both axes.
     """
-    split(mesh)  # a mesh the engine cannot take raises before any work
     dev = resolve_device(device)
     if isinstance(seed, torch.Tensor):
         key = seed.to(device=dev, dtype=torch.int64)
@@ -188,29 +205,30 @@ def run_walnuts(seed, q0=None, *, target, cfg: WalnutsConfig = WalnutsConfig(),
         key = threefry.PRNGKey(seed, dev)
     if inv_mass is not None:
         inv_mass = torch.as_tensor(inv_mass).to(dev)
-    if resume_state is not None:
-        state = to_device(resume_state, dev)._replace(
-            iter_n=int(resume_state.iter_n))
-        q0 = state.q
-    else:
-        q0 = torch.as_tensor(q0).to(dev)
-        state = init_state(target, q0, h0, delta0, warmup)
+    with dim_split(mesh, target.dim):
+        if resume_state is not None:
+            state = to_device(resume_state, dev)._replace(
+                iter_n=int(resume_state.iter_n))
+            q0 = state.q
+        else:
+            q0 = torch.as_tensor(q0).to(dev)
+            state = init_state(target, q0, h0, delta0, warmup, mesh)
 
-    gen0 = target.generated(q0)
-    C = q0.shape[0]
-    samples = torch.empty((num_iter + 1,) + tuple(gen0.shape),
-                          dtype=gen0.dtype, device=dev)
-    samples[0] = gen0
-    diags = torch.empty((num_iter, C, 24), dtype=q0.dtype, device=dev)
-    orbit = []
-    for i in range(1, num_iter + 1):
-        state, res = sampler_step(threefry.fold_in(key, i), state,
-                                  target=target, cfg=cfg, warmup=warmup,
-                                  inv_mass=inv_mass, mesh=mesh)
-        samples[i] = target.generated(res.q)
-        diags[i - 1] = res.diagnostics
-        if collect_orbit_stats:
-            orbit.append((res.orbit_min, res.orbit_max))
+        gen0 = target.generated(q0)
+        C = q0.shape[0]
+        samples = torch.empty((num_iter + 1,) + tuple(gen0.shape),
+                              dtype=gen0.dtype, device=dev)
+        samples[0] = gen0
+        diags = torch.empty((num_iter, C, 24), dtype=q0.dtype, device=dev)
+        orbit = []
+        for i in range(1, num_iter + 1):
+            state, res = sampler_step(threefry.fold_in(key, i), state,
+                                      target=target, cfg=cfg, warmup=warmup,
+                                      inv_mass=inv_mass, mesh=mesh)
+            samples[i] = target.generated(res.q)
+            diags[i - 1] = res.diagnostics
+            if collect_orbit_stats:
+                orbit.append((res.orbit_min, res.orbit_max))
     if collect_orbit_stats:
         omin, omax = (torch.stack(x) for x in zip(*orbit))
         return samples, diags, state, omin, omax

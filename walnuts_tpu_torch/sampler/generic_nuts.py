@@ -26,7 +26,10 @@ Randomness is JAX's threefry stream: ``split(key, 3)`` into momentum,
 directions and orbit keys; per schedule step ``t``, ``split(fold_in(
 k_orbit, t), 5)`` gives the (unused) step keys, the two selection
 uniforms and the acceptance uniform.  All steps' uniforms are drawn in
-one batched pass before the loop, with the per-step draws' bits.
+one batched pass before the loop, with the per-step draws' bits.  With
+the chains split over the ranks of a 1-D mesh every draw is the rank's
+rows of the whole batch's (``chain_block``), and nothing is pooled
+across chains, so each rank runs its chains with no collective.
 
 Diagnostics columns (one row per chain per iteration): ``DIAG_COLS``.
 """
@@ -34,7 +37,8 @@ Diagnostics columns (one row per chain per iteration): ``DIAG_COLS``.
 import torch
 
 from ..ops.hamiltonian import uturn
-from ..ops.isokinetic import MCState, where_state
+from ..ops.isokinetic import MCState, draw_window, where_state
+from ..parallel.mesh import STREAM_DIM_SPLIT_ITEM, chain_block, chains_only
 from ..utils import threefry
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .plans import build_schedule
@@ -53,26 +57,30 @@ def logaddexp(x1, x2):
 
 
 def generic_nuts_transition(key, state: MCState, h_macro, delta, *,
-                            target, kernel, m: int):
+                            target, kernel, m: int, chain_block=None):
     """One NUTS transition over a generic step kernel for a ``[C, D]``
     batch, on the device of ``state``.  ``key`` is a threefry key
     (``[2]`` int64 words); ``h_macro`` and ``delta`` are ``[C]``; ``m``
     is the number of doublings after the initial single step (the
-    reference's ``M``).  Returns ``(new_state, diagnostics [C, 12])``;
+    reference's ``M``).  ``chain_block = (c0, C_total)`` when the batch
+    is chains ``c0 .. c0+C-1`` of ``C_total``: the draws are those rows
+    of the whole batch's.  Returns ``(new_state, diagnostics [C, 12])``;
     the new state's velocity is zero, as in JAX."""
     C, D = state.q.shape
     dtype, dev = state.q.dtype, state.q.device
     sched = build_schedule(m + 1)
     T, S = sched.n_steps, sched.capacity
 
+    (Cg,), rows = draw_window((C,), chain_block)
     k_mom, k_dirs, k_orbit = threefry.split(key, 3)
-    state = kernel.refresh(k_mom, state)
+    state = kernel.refresh(k_mom, state, chain_block)
     lwt0 = -kernel.ham(state)
-    xi_all = threefry.bernoulli(k_dirs, 0.5, (C, m + 1))
+    xi_all = threefry.bernoulli(k_dirs, 0.5, (Cg, m + 1), rows=rows)
     sub = threefry.split(threefry.fold_in(
         k_orbit, torch.arange(T, dtype=torch.int64, device=dev)), 5)
-    u_s = [threefry.uniform(sub[:, j], (C,), dtype) for j in (2, 3)]
-    u_acc = threefry.uniform(sub[:, 4], (C,), dtype)
+    u_s = [threefry.uniform(sub[:, j], (Cg,), dtype, rows=rows)
+           for j in (2, 3)]
+    u_acc = threefry.uniform(sub[:, 4], (Cg,), dtype, rows=rows)
 
     zf = torch.zeros((C,), dtype=dtype, device=dev)
     zi = torch.zeros((C,), dtype=torch.int32, device=dev)
@@ -233,7 +241,8 @@ def generic_nuts_transition(key, state: MCState, h_macro, delta, *,
 
 
 def run_generic_nuts(seed, q0, *, target, kernel, h_macro, delta,
-                     num_iter: int, m: int = 10, device=DEFAULT_DEVICE):
+                     num_iter: int, m: int = 10, device=DEFAULT_DEVICE,
+                     mesh=None):
     """Chain driver (``NUTSampler.run``): fixed tuning, full momentum
     refresh per iteration; ``wt.sampler.run_generic_nuts(
     jax.random.PRNGKey(seed), q0, ...)``.
@@ -244,14 +253,21 @@ def run_generic_nuts(seed, q0, *, target, kernel, h_macro, delta,
     The iteration keys are ``fold_in(key, i)`` for ``i = 1 ..
     num_iter``.
 
+    ``mesh``: a 1-D mesh (:func:`..parallel.make_mesh`): ``q0`` is this
+    rank's block of chains (:func:`..parallel.shard_chains`) and the
+    outputs are its rows of the single-process run's.  A 2-D mesh
+    raises.
+
     Returns ``(samples [num_iter+1, C, dg], diagnostics [num_iter, C,
     12])``; row 0 of ``samples`` is the generated quantities of ``q0``.
     """
+    split = chains_only(mesh, STREAM_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     key = (seed.to(device=dev, dtype=torch.int64)
            if isinstance(seed, torch.Tensor) else threefry.PRNGKey(seed, dev))
     q0 = torch.as_tensor(q0).to(dev)
     C = q0.shape[0]
+    block = chain_block(mesh, C) if split else None
     state = kernel.init(target, q0)
     h = torch.full((C,), h_macro, dtype=q0.dtype, device=dev)
     d = torch.full((C,), delta, dtype=q0.dtype, device=dev)
@@ -264,6 +280,6 @@ def run_generic_nuts(seed, q0, *, target, kernel, h_macro, delta,
     for i in range(1, num_iter + 1):
         state, diags[i - 1] = generic_nuts_transition(
             threefry.fold_in(key, i), state, h, d, target=target,
-            kernel=kernel, m=m)
+            kernel=kernel, m=m, chain_block=block)
         samples[i] = target.generated(state.q)
     return samples, diags

@@ -10,7 +10,8 @@ A kernel bundles the state conventions of one dynamics:
   StepStats)``.
 
 ``refresh`` takes a threefry key (:mod:`..utils.threefry`), so a kernel
-draws JAX's momenta.  ``step`` takes the JAX version's unused key as
+draws JAX's momenta, and ``block = (c0, C_total)`` for a rank's chains
+``c0 ..`` of a batch split over ranks (their rows of the whole draw).  ``step`` takes the JAX version's unused key as
 its first argument.  Every refinement search is a host loop with one
 ``any`` per level, as in :mod:`..ops.isokinetic`.
 """
@@ -20,8 +21,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops.isokinetic import (MCState, StepStats, adapt_mc_step_e,
-                              adapt_mc_step_flow2, c_obs_stat, fixed_mc_step,
-                              isokinetic_multistep, refresh_u, where_state)
+                              adapt_mc_step_flow2, c_obs_stat, draw_window,
+                              fixed_mc_step, isokinetic_multistep, refresh_u,
+                              where_state)
 from ..ops.leapfrog import PhasePoint, leapfrog_step, masked_multistep
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO
@@ -132,8 +134,9 @@ class IsokineticKernel(NamedTuple):
         lp, g = target.logp_grad(q)
         return MCState(q, torch.zeros_like(q), g, lp)
 
-    def refresh(self, key, state):
-        return state._replace(u=refresh_u(key, state.q.shape, state.q.dtype))
+    def refresh(self, key, state, block=None):
+        shape, rows = draw_window(state.q.shape, block)
+        return state._replace(u=refresh_u(key, shape, state.q.dtype, rows))
 
     def flip(self, state):
         return state._replace(u=-state.u)
@@ -184,8 +187,9 @@ class HMCKernel(NamedTuple):
         lp, g = target.logp_grad(q)
         return MCState(q, torch.zeros_like(q), g, lp)
 
-    def refresh(self, key, state):
-        v = threefry.normal(key, state.q.shape, state.q.dtype)
+    def refresh(self, key, state, block=None):
+        shape, rows = draw_window(state.q.shape, block)
+        v = threefry.normal(key, shape, state.q.dtype, rows)
         return state._replace(u=v)
 
     def flip(self, state):

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..ops.hamiltonian import hamiltonian, uturn
-from ..parallel.mesh import chain_block, gather_rows, reduce_int, split
+from ..parallel.mesh import (FUSED_DIM_SPLIT_ITEM, chain_block, chains_only,
+                             gather_rows, reduce_int, split)
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
 from ..utils.p2 import P2State, p2_init, p2_push, p2_quantile
@@ -1049,7 +1050,8 @@ def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
          device=DEFAULT_DEVICE, mesh=None):
     from . import round_kernel
 
-    split(mesh)  # a mesh the engine cannot take raises before any work
+    # a mesh the engine cannot take raises before any work
+    chains_only(mesh, FUSED_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     q0 = torch.as_tensor(q0).to(dev)
     h_step, delta, mk_state, adapt_state = (

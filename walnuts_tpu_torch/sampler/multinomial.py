@@ -23,13 +23,17 @@
 JAX's ``lax.scan`` over iterations and the sweeps' ``while_loop``s are
 host loops (one host sync per sweep step).  Randomness is JAX's
 threefry stream (with x64 on, so the forward split is drawn as int64).
+With the chains split over the ranks of a 1-D mesh every draw is the
+rank's rows of the whole batch's; each chain adapts on its own, so each
+rank runs its chains with no collective.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from ..ops.isokinetic import where_state
+from ..ops.isokinetic import draw_window, where_state
+from ..parallel.mesh import STREAM_DIM_SPLIT_ITEM, chain_block, chains_only
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -64,12 +68,13 @@ class _Scaled:
         return lp, g * self.svec
 
 
-def _wasps_vectors(key, shape, dtype):
+def _wasps_vectors(key, shape, dtype, rows=None):
     """``eta``, ``gam`` (note the ``1/||z||^2`` scaling: magnitudes
-    cancel in the sign-based stop rule)."""
+    cancel in the sign-based stop rule); ``rows`` of ``shape``'s
+    leading axis alone."""
     k1, k2 = threefry.split(key).unbind(-2)
-    z1 = threefry.normal(k1, shape, dtype)
-    z2 = threefry.normal(k2, shape, dtype)
+    z1 = threefry.normal(k1, shape, dtype, rows)
+    z2 = threefry.normal(k2, shape, dtype, rows)
     eta = z1 / torch.sum(z1 * z1, dim=-1, keepdim=True)
     z2 = z2 - torch.sum(z2 * eta, dim=-1, keepdim=True) * eta
     gam = z2 / torch.sum(z2 * z2, dim=-1, keepdim=True)
@@ -97,12 +102,14 @@ class _Sweep(NamedTuple):
 
 def _direction_sweep(key, target, kernel, s0, ham0, n_steps, h, delta,
                      eta, gam, cen, cfg, sign, orbit_min, orbit_max,
-                     gen_fn):
+                     gen_fn, block=None):
     """One direction's masked sweep of up to ``max(n_steps)`` macro
     steps: the selected state and index (online multinomial within this
     direction, merged across directions by the caller), the log weight
-    sum, per-direction stats and the updated orbit stats."""
+    sum, per-direction stats and the updated orbit stats.  ``block = (c0,
+    C_total)``: the chains are rows ``c0 ..`` of the whole batch."""
     C = s0.q.shape[0]
+    u_shape, rows = draw_window((C,), block)
     dtype, dev = s0.q.dtype, s0.q.device
     W = torch.where
     zf = torch.zeros((C,), dtype=dtype, device=dev)
@@ -148,7 +155,7 @@ def _direction_sweep(key, target, kernel, s0, ham0, n_steps, h, delta,
         lwt = W(use & torch.isfinite(ham_new), ham0 - ham_new + acc_lwt,
                 -torch.inf)
         log_mn_sum = W(use, logaddexp(log_mn_sum, lwt), log_mn_sum)
-        u = threefry.uniform(key_sel, (C,), dtype)
+        u = threefry.uniform(key_sel, u_shape, dtype, rows=rows)
         sel = use & (torch.log(torch.clamp(u, min=1e-300))
                      < lwt - log_mn_sum)
 
@@ -184,7 +191,7 @@ def run_multinomial(seed, q0, *, target, kernel=IsokineticKernel(),
                     h0=0.1, delta0=0.1, num_iter: int = 1000,
                     warmup_iter: int = 500, scale=1.0, center=0.0,
                     collect_orbit_stats: bool = False,
-                    device=DEFAULT_DEVICE):
+                    device=DEFAULT_DEVICE, mesh=None):
     """Run the fixed-orbit multinomial sampler over a ``[C, D]`` batch
     (``wt.sampler.run_multinomial(jax.random.PRNGKey(seed), q0, ...)``).
 
@@ -195,15 +202,23 @@ def run_multinomial(seed, q0, *, target, kernel=IsokineticKernel(),
     num_iter`` draws from ``fold_in(key, it)`` and adapts ``(h, delta)``
     while ``it <= warmup_iter``.
 
+    ``mesh``: a 1-D mesh (:func:`..parallel.make_mesh`): ``q0`` is this
+    rank's block of chains (:func:`..parallel.shard_chains`) and the
+    outputs are its rows of the single-process run's.  A 2-D mesh
+    raises.
+
     Returns ``(samples [num_iter+1, C, dg], diagnostics [num_iter, C,
     14], (h, delta) final)``, plus the per-iteration orbit minima and
     maxima of the generated quantities under ``collect_orbit_stats``.
     """
+    split = chains_only(mesh, STREAM_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     key = (seed.to(device=dev, dtype=torch.int64)
            if isinstance(seed, torch.Tensor) else threefry.PRNGKey(seed, dev))
     q0 = torch.as_tensor(q0).to(dev)
     C, D = q0.shape
+    block = chain_block(mesh, C) if split else None
+    (Cg, _), rows = draw_window((C, D), block)
     dtype = q0.dtype
     L = cfg.l_orbit
     W = torch.where
@@ -230,27 +245,28 @@ def run_multinomial(seed, q0, *, target, kernel=IsokineticKernel(),
     for it in range(1, num_iter + 1):
         k_mom, k_nf, k_wasps, k_f, k_b, k_pick = threefry.split(
             threefry.fold_in(key, it), 6).unbind(-2)
-        s = kernel.refresh(k_mom, state)
+        s = kernel.refresh(k_mom, state, block)
         ham0 = kernel.ham(s)
-        nf = threefry.randint(k_nf, (C,), 0, L)
+        nf = threefry.randint(k_nf, (Cg,), 0, L, rows=rows)
         nb = L - 1 - nf
         eta = gam = None
         if cfg.wasps:
-            eta, gam = _wasps_vectors(k_wasps, (C, D), dtype)
+            eta, gam = _wasps_vectors(k_wasps, (Cg, D), dtype, rows)
         gen0 = (target.generated(s.q * svec) if collect_orbit_stats
                 else torch.zeros((C, 0), dtype=dtype, device=dev))
 
         fw = _direction_sweep(k_f, scaled, kernel, s, ham0, nf, h, delta,
-                              eta, gam, cen, cfg, 1, gen0, gen0, gen_fn)
+                              eta, gam, cen, cfg, 1, gen0, gen0, gen_fn,
+                              block)
         bw = _direction_sweep(k_b, scaled, kernel, kernel.flip(s), ham0, nb,
                               h, delta, eta, gam, cen, cfg, -1, fw.omin,
-                              fw.omax, gen_fn)
+                              fw.omax, gen_fn, block)
 
         # merge the two directions' selections with the centre state,
         # whose weight is exp(0)
         log_fb = logaddexp(fw.log_mn_sum, bw.log_mn_sum)
         log_tot = logaddexp(torch.zeros_like(log_fb), log_fb)
-        u = threefry.uniform(k_pick, (C,), dtype)
+        u = threefry.uniform(k_pick, (Cg,), dtype, rows=rows)
         lu = torch.log(torch.clamp(u, min=1e-300))
         pick_f = lu < fw.log_mn_sum - log_tot
         pick_b = ~pick_f & (lu < log_fb - log_tot)

@@ -21,6 +21,12 @@ with other counters and purposes: a chain's draws do not depend on the
 batch.  ``rng="global"`` keys each round's threefry draws by the round
 number, so a chain's path depends on the whole batch's progress.
 
+With the chains split over the ranks of a 1-D mesh (``mesh=``) every
+draw is keyed by the global chain (the hash's chain id ``c0 + c``, the
+threefry draws' row window), and no step pools anything across chains,
+so each rank runs its chains with no collective: a rank's results are
+its rows of the single-process run.
+
 The round is the JAX loop body, with every per-chain schedule lookup a
 gather from tables built once on the host.  The loop is a host loop
 with one host sync per round (``any(it < num_iter)``), plus those of the
@@ -32,6 +38,7 @@ import torch
 
 from ..ops.hamiltonian import hamiltonian, refresh_momentum, uturn
 from ..ops.integrators import get_integrator
+from ..parallel.mesh import STREAM_DIM_SPLIT_ITEM, chain_block, chains_only
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -102,13 +109,13 @@ def _hash_seed(seed):
     return int(threefry.randint(key, (1,), 0, 2 ** 30, torch.int32)[0])
 
 
-def _make_hash_draws(seed, C, D, dtype, dev):
+def _make_hash_draws(seed, C, D, dtype, dev, c0=0):
     """``draws(it, t)``: a round's draws keyed by (seed, chain id, the
     chain's ``it`` and ``t``, purpose): uniforms for the two jitters
     (purposes 0, 1), the two R2P coins (2, 3), the two category draws
     (4, 5) and the acceptance (6), the direction bits (7) and the
-    Box-Muller momentum (8, 9)."""
-    cid = torch.arange(C, dtype=torch.int64, device=dev)
+    Box-Muller momentum (8, 9).  The chain ids are ``c0 .. c0+C-1``."""
+    cid = torch.arange(c0, c0 + C, dtype=torch.int64, device=dev)
     h_c = _mix32(((seed & _M32) + _mul32(cid, HASH_M1)) & _M32)
     lane_m1 = _mul32(torch.arange(D, dtype=torch.int64, device=dev),
                      HASH_M1)
@@ -140,7 +147,7 @@ def _make_hash_draws(seed, C, D, dtype, dev):
 def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
                           cfg: WalnutsConfig, num_iter: int,
                           rng: str = "hash", device=DEFAULT_DEVICE,
-                          stats=None):
+                          stats=None, mesh=None):
     """Stream ``num_iter`` fixed-tuning WALNUTS transitions per chain
     (``run_walnuts_streaming(jax.random.PRNGKey(seed), ...)`` of the JAX
     package).
@@ -159,15 +166,23 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
             ``device="cpu"``; without a card the default raises.
         stats: an optional dict; the number of rounds is stored under
             ``"rounds"``.
+        mesh: a 1-D mesh (:func:`..parallel.make_mesh`): ``q0``,
+            ``h_step`` and ``delta`` are this rank's block of chains
+            (:func:`..parallel.shard_chains`), and the outputs are its
+            rows of the single-process run's (the round count is the
+            rank's own).  A 2-D mesh raises.
 
     Returns ``(samples [num_iter, C, dg], diagnostics [num_iter, C,
     24], q_final [C, D])``.  Restarting from ``q_final`` is exact (every
     transition begins with a momentum refresh), so long runs can be
     chunked.
     """
+    chains_only(mesh, STREAM_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     q0 = torch.as_tensor(q0).to(dev)
     C, D = q0.shape
+    c0, C_total = chain_block(mesh, C)
+    rows = (c0, c0 + C) if C_total != C else None
     dtype = q0.dtype
     h_step = torch.as_tensor(h_step).to(device=dev, dtype=dtype)
     delta = torch.as_tensor(delta).to(device=dev, dtype=dtype)
@@ -214,7 +229,7 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
     diags = torch.zeros((num_iter, C, 24), dtype=dtype, device=dev)
 
     if rng == "hash":
-        hash_draws = _make_hash_draws(_hash_seed(seed), C, D, dtype, dev)
+        hash_draws = _make_hash_draws(_hash_seed(seed), C, D, dtype, dev, c0)
     else:
         key = threefry.PRNGKey(seed, dev)
 
@@ -310,15 +325,16 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
             (k_h, k_i1, k_i2, k_c1, k_c2, k_acc, k_mom,
              k_dirs) = threefry.split(threefry.fold_in(key, n), 8).unbind(-2)
             if cfg.integrator == "adapt_leapfrog_r2p":
-                coins = tuple(threefry.uniform(k, (C,), torch.float64)
+                coins = tuple(threefry.uniform(k, (C_total,), torch.float64,
+                                               rows=rows)
                               for k in (k_i1, k_i2))
             else:  # the other integrators draw nothing
                 coins = (None, None)
-            u_cat = tuple(threefry.uniform(k, (C,), dtype)
+            u_cat = tuple(threefry.uniform(k, (C_total,), dtype, rows=rows)
                           for k in (k_c1, k_c2))
-            u_acc = threefry.uniform(k_acc, (C,), dtype)
+            u_acc = threefry.uniform(k_acc, (C_total,), dtype, rows=rows)
             hloc = h_step[:, None] * threefry.uniform(
-                k_h, (C, 2), dtype, 1.0 - s_jit, 1.0 + s_jit)
+                k_h, (C_total, 2), dtype, 1.0 - s_jit, 1.0 + s_jit, rows)
 
         # ---- fresh-transition initialisation (t == 0) ----
         fresh = live & (st["t"] == 0)
@@ -327,9 +343,9 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
             bits = (rr["dirs"][:, None] >> m_bits[None, :]) & 1
             xi_new = W(bits != 0, 1.0, -1.0).to(dtype)
         else:
-            v0 = refresh_momentum(k_mom, (C, D), None, dtype)
-            xi_new = W(threefry.bernoulli(k_dirs, 0.5, (C, m)), 1.0,
-                       -1.0).to(dtype)
+            v0 = refresh_momentum(k_mom, (C_total, D), None, dtype, rows)
+            xi_new = W(threefry.bernoulli(k_dirs, 0.5, (C_total, m),
+                                          rows=rows), 1.0, -1.0).to(dtype)
         h0 = hamiltonian(st["lpc"], v0)
         f1 = fresh[:, None]
         for k, v in _SCALARS.items():

@@ -25,6 +25,12 @@ and orbit keys; per schedule step ``t``, ``split(fold_in(k_orbit, t),
 uniforms and the acceptance uniform.  All steps' draws are computed in
 one batched pass before the loop; the bits are those of the per-step
 draws.
+
+Inside a dim split (:func:`..parallel.mesh.dim_split`) ``q`` and ``g``
+are a rank's columns: the momentum is drawn for those columns alone,
+the slab holds them, and every sum over D (energies, U-turn dots, the
+target's) is the dim group's, so every per-chain flag, scalar and draw
+is the same on each rank of the group.
 """
 
 from types import SimpleNamespace
@@ -34,6 +40,7 @@ import torch
 
 from ..ops.hamiltonian import hamiltonian, refresh_momentum, uturn
 from ..ops.integrators import IntegratorConfig, get_integrator
+from ..parallel.mesh import current_dim_split
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.p2 import P2State, p2_push
@@ -75,13 +82,17 @@ def _mmax(cur, new, mask):
 def _draws(key, C, D, T, dtype, cfg, im, chain_block=None):
     """Every draw of one transition, in one batched pass per kind; with
     ``chain_block = (c0, C_total)``, rows ``c0 .. c0+C-1`` of the draws
-    of ``C_total`` chains (every draw's leading axis is the chains')."""
+    of ``C_total`` chains (every draw's leading axis is the chains');
+    inside a dim split, the momentum's columns are the rank's (``D`` is
+    the local width, ``im`` the whole diagonal)."""
     Cg, rows = C, None
     if chain_block is not None:
         c0, Cg = chain_block
         rows = (c0, c0 + C)
+    ds = current_dim_split()
+    Dg, cols = (D, None) if ds is None else (ds.D, (ds.d0, ds.d1))
     k_mom, k_dirs, k_orbit = threefry.split(key, 3)
-    v0 = refresh_momentum(k_mom, (Cg, D), im, dtype, rows)
+    v0 = refresh_momentum(k_mom, (Cg, Dg), im, dtype, rows, cols)
     xi_all = torch.where(threefry.bernoulli(k_dirs, 0.5, (Cg, cfg.m),
                                             rows=rows),
                          1.0, -1.0).to(dtype)
@@ -118,7 +129,7 @@ def walnuts_transition(key, q, lp, g, h_step, delta, p2: P2State, warmup,
         warmup: host bool, whether warmup statistics are collected.
         target, cfg: the target and the static configuration.
         inv_mass: optional diagonal inverse mass ``[D]`` (used when
-            ``cfg.use_inv_mass``).
+            ``cfg.use_inv_mass``; the whole diagonal under a dim split).
         chain_block: ``(c0, C_total)`` when ``q`` holds chains ``c0 ..
             c0+C-1`` of a batch of ``C_total`` split over ranks: the
             draws are those chains' rows of the whole batch's draws.
@@ -132,6 +143,9 @@ def walnuts_transition(key, q, lp, g, h_step, delta, p2: P2State, warmup,
 
     v0, xi_all, jitter, coins, u_cat, u_acc = _draws(
         key, C, D, T, dtype, cfg, im, chain_block)
+    ds = current_dim_split()
+    if im is not None and ds is not None:
+        im = im[..., ds.d0:ds.d1]       # the ops take the rank's columns
     hloc_all = h_step[None, :, None] * jitter                 # [T, C, 2]
     h0 = hamiltonian(lp, v0, im)
 

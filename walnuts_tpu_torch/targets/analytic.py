@@ -8,12 +8,18 @@ operation order, so the two agree to rounding in float64; ``smile``,
 the JAX version takes them from autodiff.  Constant vectors (the
 rescaled funnel's scales, the ill-conditioned Gaussian's variances) are
 built in float64 and cast to the position's dtype where they are used.
+
+``std_gauss``, ``ill_conditioned_gauss`` and ``funnel`` are separable and
+split on a rank's columns under a dim split (``block_logp_grad``): each
+rank sums its own columns and one all-reduce over the dim group joins
+the partial sums.  The other targets take ``Target``'s general route.
 """
 
 import math
 
 import torch
 
+from ..parallel.mesh import dim_sum
 from .base import Target, constant_like
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -35,8 +41,12 @@ def std_gauss(dim: int, generated=None) -> Target:
         lp = -0.5 * torch.sum(q * q, dim=-1)
         return lp, -q
 
+    def block_logp_grad(q, split):
+        return -0.5 * dim_sum(torch.sum(q * q, dim=-1)), -q
+
     return Target(logp, dim, name=f"std_gauss_{dim}", logp_grad=logp_grad,
-                  generated=generated, kernel_id="std_gauss")
+                  generated=generated, kernel_id="std_gauss",
+                  block_logp_grad=block_logp_grad)
 
 
 def funnel(dim: int, scale: float = 3.0, generated=None) -> Target:
@@ -52,11 +62,8 @@ def funnel(dim: int, scale: float = 3.0, generated=None) -> Target:
         return (-0.5 * z * z - math.log(scale) - 0.5 * _LOG_2PI) + torch.sum(
             -0.5 * x * x * torch.exp(-w) - 0.5 * w - 0.5 * _LOG_2PI)
 
-    def logp_grad(q):
-        w = q[..., 0]
-        x = q[..., 1:]
+    def closed_form(w, x, ss):
         e = torch.exp(-w)
-        ss = torch.sum(x * x, dim=-1)
         z = w / scale
         lp = (
             -0.5 * (z * z)
@@ -67,11 +74,27 @@ def funnel(dim: int, scale: float = 3.0, generated=None) -> Target:
             - 0.5 * k * _LOG_2PI
         )
         gw = -w / scale ** 2 + 0.5 * e * ss - 0.5 * k
-        gx = -x * e[..., None]
+        return lp, gw, -x * e[..., None]
+
+    def logp_grad(q):
+        w, x = q[..., 0], q[..., 1:]
+        lp, gw, gx = closed_form(w, x, torch.sum(x * x, dim=-1))
         return lp, torch.cat([gw[..., None], gx], dim=-1)
 
+    def block_logp_grad(q, split):
+        # omega lives on the rank with column 0: its column and every
+        # rank's partial sum of x^2 go through one all-reduce (the other
+        # ranks add zeros to omega); k stays the global D - 1
+        head = split.d0 == 0
+        x = q[..., 1:] if head else q
+        w_part = q[..., 0] if head else torch.zeros_like(q[..., 0])
+        w, ss = dim_sum(w_part, torch.sum(x * x, dim=-1))
+        lp, gw, gx = closed_form(w, x, ss)
+        return lp, (torch.cat([gw[..., None], gx], dim=-1) if head else gx)
+
     return Target(logp, dim, name=f"funnel_{dim}", logp_grad=logp_grad,
-                  generated=generated, kernel_id="funnel", kernel_param=scale)
+                  generated=generated, kernel_id="funnel", kernel_param=scale,
+                  block_logp_grad=block_logp_grad)
 
 
 def corr_gauss(rho: float = 0.5) -> Target:
@@ -156,5 +179,9 @@ def ill_conditioned_gauss(dim: int, kappa: float = 1e4) -> Target:
         var = var_for(q)
         return -0.5 * torch.sum(q * q / var, dim=-1), -q / var
 
+    def block_logp_grad(q, split):
+        var = var_for(q)[split.d0:split.d1]
+        return -0.5 * dim_sum(torch.sum(q * q / var, dim=-1)), -q / var
+
     return Target(logp, dim, name=f"ill_gauss_{dim}_k{kappa:g}",
-                  logp_grad=logp_grad)
+                  logp_grad=logp_grad, block_logp_grad=block_logp_grad)

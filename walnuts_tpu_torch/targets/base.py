@@ -16,11 +16,23 @@ of a target that has more (Stock-Watson's series length ``T``, its
 external-gradient instantiation: the host calls ``logp_grad`` on every
 chain's position at each gradient point, between two launches
 (``sampler/round_kernel.py``).
+
+Inside a dim split (:func:`..parallel.mesh.dim_split`) positions are a
+rank's columns ``d0 .. d1-1``.  A separable target gives
+``block_logp_grad(q, split)``, which sums over its own columns and
+all-reduces the partial sums over the dim group; every other target
+takes one general route: the columns are gathered over the group, the
+whole ``logp_grad`` runs on each rank, and each keeps its columns of the
+gradient.  ``generated`` keeps the rank's columns when it is the
+identity, and otherwise runs on the gathered rows, so that the ranks of
+a group hold the same rows of generated quantities.
 """
 
 from typing import Callable, Optional
 
 import torch
+
+from ..parallel.mesh import current_dim_split, dim_gather, dim_split
 
 
 class Target:
@@ -37,6 +49,9 @@ class Target:
         kernel_id: name of the CUDA round kernel's fused target, if any.
         kernel_param: the fused funnel's scale.
         kernel_args: the parameters of a fused target with more than one.
+        block_logp_grad: optional ``(q_block, split) -> (lp[...],
+            grad_block)`` of a separable target under a dim split
+            (``split`` a :class:`..parallel.mesh.DimSplit`).
     """
 
     def __init__(
@@ -49,6 +64,7 @@ class Target:
         kernel_id: Optional[str] = None,
         kernel_param: float = 0.0,
         kernel_args: Optional[dict] = None,
+        block_logp_grad: Optional[Callable] = None,
     ):
         self._logp = logp
         self.dim = int(dim)
@@ -58,6 +74,7 @@ class Target:
         self.kernel_id = kernel_id
         self.kernel_param = float(kernel_param)
         self.kernel_args = dict(kernel_args or {})
+        self._block_logp_grad = block_logp_grad
 
     def logp(self, q):
         """Batched log density: ``[..., D] -> [...]``."""
@@ -67,7 +84,20 @@ class Target:
         return torch.func.vmap(self._logp)(flat).reshape(q.shape[:-1])
 
     def logp_grad(self, q):
-        """Batched value-and-gradient: ``[..., D] -> ([...], [..., D])``."""
+        """Batched value-and-gradient: ``[..., D] -> ([...], [..., D])``;
+        under a dim split, of this rank's columns (the log density whole,
+        the gradient's columns)."""
+        split = current_dim_split()
+        if split is None:
+            return self._whole_logp_grad(q)
+        if self._block_logp_grad is not None:
+            return self._block_logp_grad(q, split)
+        q = dim_gather(q)
+        with dim_split(None, q.shape[-1]):   # whole rows from here on
+            lp, g = self._whole_logp_grad(q)
+        return lp, g[..., split.d0:split.d1]
+
+    def _whole_logp_grad(self, q):
         if self._logp_grad is not None:
             return self._logp_grad(q)
         with torch.enable_grad():
@@ -106,7 +136,9 @@ class Target:
     def generated(self, q):
         if self._generated is None:
             return q
-        return self._generated(q)
+        q = dim_gather(q)
+        with dim_split(None, q.shape[-1]):
+            return self._generated(q)
 
     @property
     def generated_dim(self):

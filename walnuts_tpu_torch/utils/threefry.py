@@ -18,12 +18,14 @@ package.  What is reproduced is JAX 0.9 with
   (mode ``"low"``), with XLA's ``erf_inv`` polynomials.
 
 Because the counter is the flat index into the draw's global shape, the
-draws of a block of leading rows are those counters alone: each of
+draws of a block of the draw are those counters alone: each of
 :func:`random_bits`, :func:`uniform`, :func:`bernoulli` and
-:func:`normal` takes ``rows=(r0, r1)`` and returns ``full[r0:r1]`` bit
-for bit while hashing only its own counters, so a rank that holds rows
-``r0 .. r1`` of a chain batch draws what a single process would draw for
-them.
+:func:`normal` takes ``rows=(r0, r1)`` (leading axis) and ``cols=(c0,
+c1)`` (last axis) and returns ``full[r0:r1, ..., c0:c1]`` bit for bit
+while hashing only its own counters (a window of columns is a strided
+set of them), so a rank that holds rows ``r0 .. r1`` of a chain batch,
+and columns ``c0 .. c1`` of its positions, draws what a single process
+would draw for them.  :func:`randint` takes ``rows``.
 
 A key is an int64 tensor of shape ``[..., 2]`` holding two uint32 words:
 torch has no uint32 arithmetic on the CPU, so the words ride in int64
@@ -100,18 +102,18 @@ def fma(a, b, c):
     return s + (t + e)
 
 
-def _hash_index(key, n, start=0):
-    """Hash the counters ``start .. start+n-1`` (high word 0) under a
-    batch of keys ``[..., 2]``: two words of shape ``[..., n]``."""
-    idx = torch.arange(start, start + n, dtype=torch.int64,
-                       device=key.device)
+def _hash_index(key, idx):
+    """Hash the counters ``idx`` (an int64 tensor ``[n]`` of values below
+    2^32; high word 0) under a batch of keys ``[..., 2]``: two words of
+    shape ``[..., n]``."""
     k1, k2 = key[..., 0, None], key[..., 1, None]
     return threefry2x32(k1, k2, torch.zeros_like(idx), idx)
 
 
 def split(key, num: int = 2):
     """``jax.random.split(key, num)``: ``[..., 2] -> [..., num, 2]``."""
-    b1, b2 = _hash_index(key, num)
+    b1, b2 = _hash_index(key, torch.arange(num, dtype=torch.int64,
+                                           device=key.device))
     return torch.stack([b1, b2], dim=-1)
 
 
@@ -124,26 +126,40 @@ def fold_in(key, data):
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def _window(shape, rows):
-    """``(first counter, counters, output shape)`` of the leading rows
-    ``rows = (r0, r1)`` of a draw of global ``shape`` (all of it for
-    ``None``)."""
-    if rows is None:
-        return 0, math.prod(shape), shape
-    r0, r1 = (int(r) for r in rows)
-    if not shape or not 0 <= r0 <= r1 <= shape[0]:
-        raise ValueError(f"rows {rows} outside the leading axis of {shape}")
-    inner = math.prod(shape[1:])
-    return r0 * inner, (r1 - r0) * inner, (r1 - r0,) + shape[1:]
+def _window(shape, rows, cols, device):
+    """``(counters [n], output shape)`` of the window ``rows = (r0, r1)``
+    of the leading axis and ``cols = (c0, c1)`` of the last axis of a
+    draw of global ``shape`` (each whole for ``None``)."""
+    def bounds(win, axis, name):
+        lo, hi = (int(x) for x in win)
+        if not shape or not 0 <= lo <= hi <= shape[axis]:
+            raise ValueError(f"{win} outside the {name} axis of {shape}")
+        return lo, hi
+
+    if rows is None and cols is None:
+        return torch.arange(math.prod(shape), dtype=torch.int64,
+                            device=device), shape
+    r0, r1 = (0, shape[0]) if rows is None else bounds(rows, 0, "leading")
+    if cols is None:
+        inner = math.prod(shape[1:])
+        return (torch.arange(r0 * inner, r1 * inner, dtype=torch.int64,
+                             device=device), (r1 - r0,) + shape[1:])
+    if len(shape) < 2:
+        raise ValueError(f"a column window needs a draw of two axes or "
+                         f"more, got {shape}")
+    c0, c1 = bounds(cols, -1, "last")
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=device).reshape(shape)[r0:r1, ..., c0:c1]
+    return idx.reshape(-1), tuple(idx.shape)
 
 
-def random_bits(key, bit_width: int, shape, rows=None):
+def random_bits(key, bit_width: int, shape, rows=None, cols=None):
     """``jax.random.bits``: ``[..., 2]`` keys -> ``[..., *shape]`` words
     (32-bit as int64 values below 2^32; 64-bit as the high and low
-    words ``(hi, lo)``).  ``rows=(r0, r1)`` returns rows ``r0 .. r1`` of
-    the leading axis of ``shape`` alone."""
-    start, n, out_shape = _window(tuple(shape), rows)
-    b1, b2 = _hash_index(key, n, start)
+    words ``(hi, lo)``).  ``rows=(r0, r1)`` and ``cols=(c0, c1)`` return
+    that window of the leading and the last axis of ``shape`` alone."""
+    idx, out_shape = _window(tuple(shape), rows, cols, key.device)
+    b1, b2 = _hash_index(key, idx)
     lead = key.shape[:-1]
     b1 = b1.reshape(lead + out_shape)
     b2 = b2.reshape(lead + out_shape)
@@ -155,17 +171,17 @@ def random_bits(key, bit_width: int, shape, rows=None):
 
 
 def uniform(key, shape, dtype=torch.float64, minval=0.0, maxval=1.0,
-            rows=None):
+            rows=None, cols=None):
     """``jax.random.uniform``: the mantissa bits under the exponent of
     1.0, minus one, scaled to ``[minval, maxval)`` in ``dtype``
-    (``rows`` as in :func:`random_bits`)."""
+    (``rows`` and ``cols`` as in :func:`random_bits`)."""
     if dtype == torch.float64:
-        hi, lo = random_bits(key, 64, shape, rows)
+        hi, lo = random_bits(key, 64, shape, rows, cols)
         # the top 52 of the 64 bits, ORed into 1.0's exponent
         fb = ((hi << 20) | (lo >> 12)) | 0x3FF0000000000000
         floats = fb.view(torch.float64) - 1.0
     elif dtype == torch.float32:
-        fb = (random_bits(key, 32, shape, rows) >> 9) | 0x3F800000
+        fb = (random_bits(key, 32, shape, rows, cols) >> 9) | 0x3F800000
         floats = fb.to(torch.int32).view(torch.float32) - 1.0
     else:
         raise ValueError(f"uniform draws float32 or float64, got {dtype}")
@@ -174,13 +190,13 @@ def uniform(key, shape, dtype=torch.float64, minval=0.0, maxval=1.0,
     return torch.maximum(lo_v, fma(floats, hi_v - lo_v, lo_v))
 
 
-def randint(key, shape, minval, maxval, dtype=torch.int64):
+def randint(key, shape, minval, maxval, dtype=torch.int64, rows=None):
     """``jax.random.randint(key, shape, minval, maxval, dtype)`` for int
     bounds with ``0 < maxval - minval < 2^31``: two words of random
     bits per value (``split(key)``'s two keys), folded modulo the span
     as JAX folds them.  ``dtype`` is ``torch.int32`` (32-bit words,
     uint32 arithmetic) or ``torch.int64`` (64-bit words; JAX's default
-    int with x64 on)."""
+    int with x64 on).  ``rows`` as in :func:`random_bits`."""
     minval, maxval = int(minval), int(maxval)
     span = maxval - minval
     if not 0 < span < 2 ** 31:
@@ -188,7 +204,8 @@ def randint(key, shape, minval, maxval, dtype=torch.int64):
                          f"[{minval}, {maxval})")
     k1, k2 = split(key).unbind(-2)
     if dtype == torch.int32:
-        hi, lo = random_bits(k1, 32, shape), random_bits(k2, 32, shape)
+        hi = random_bits(k1, 32, shape, rows)
+        lo = random_bits(k2, 32, shape, rows)
         # 2^32 mod span, then the two words' residues, in uint32
         mult = (((1 << 16) % span) ** 2 & _M32) % span
         off = ((hi % span) * mult & _M32) + lo % span
@@ -201,18 +218,19 @@ def randint(key, shape, minval, maxval, dtype=torch.int64):
             return ((h % span) * ((1 << 32) % span) + l % span) % span
 
         mult = (((1 << 32) % span) ** 2) % span
-        off = (rem64(random_bits(k1, 64, shape)) * mult
-               + rem64(random_bits(k2, 64, shape))) % span
+        off = (rem64(random_bits(k1, 64, shape, rows)) * mult
+               + rem64(random_bits(k2, 64, shape, rows))) % span
     else:
         raise ValueError(f"randint draws int32 or int64, got {dtype}")
     return (off + minval).to(dtype)
 
 
-def bernoulli(key, p=0.5, shape=(), dtype=torch.float64, rows=None):
+def bernoulli(key, p=0.5, shape=(), dtype=torch.float64, rows=None,
+              cols=None):
     """``jax.random.bernoulli`` (mode ``"low"``): ``uniform < p``, drawn
-    in ``p``'s dtype (float64 for a Python float under x64; ``rows`` as
-    in :func:`random_bits`)."""
-    return uniform(key, shape, dtype, rows=rows) < p
+    in ``p``'s dtype (float64 for a Python float under x64; ``rows`` and
+    ``cols`` as in :func:`random_bits`)."""
+    return uniform(key, shape, dtype, rows=rows, cols=cols) < p
 
 
 def gumbel(key, shape, dtype=torch.float64):
@@ -303,10 +321,11 @@ def erf_inv(x):
     return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
 
 
-def normal(key, shape, dtype=torch.float64, rows=None):
+def normal(key, shape, dtype=torch.float64, rows=None, cols=None):
     """``jax.random.normal``: ``sqrt(2) erf_inv(u)`` for ``u`` uniform
-    on ``[nextafter(-1, 0), 1)`` (``rows`` as in :func:`random_bits`)."""
+    on ``[nextafter(-1, 0), 1)`` (``rows`` and ``cols`` as in
+    :func:`random_bits`)."""
     lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype),
                          torch.tensor(0.0, dtype=dtype)).item()
-    u = uniform(key, shape, dtype, lo, 1.0, rows)
+    u = uniform(key, shape, dtype, lo, 1.0, rows, cols)
     return torch.tensor(math.sqrt(2.0), dtype=dtype) * erf_inv(u)
