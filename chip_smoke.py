@@ -60,7 +60,13 @@ every analytic target without a fused gradient, a user's ``logp`` and
 Stock-Watson at T = 300; 11b runs the main path's timed phase with
 funnel(101) handed over as a user's target, with its speed, the graphed
 and eager ms per period, and the split of a period into micro-step
-segments, round-boundary segments and torch's kernels.
+segments, round-boundary segments and torch's kernels.  Phase 12 runs
+the port's gaussian-transient harness (``walnuts_tpu_torch.examples.
+gaussian_transient``, the scan engine) for its d = 2048 row at the JAX
+artifact's stamp (1024 chains, float32, 31 iterations, three arms)
+behind the harness's own gate, with each arm's iterations to 95% beside
+the JAX artifact's, then the same row in float64 (50 chains, 4
+iterations) on the card against the CPU.
 
 Run from the repository root, with no arguments:
 
@@ -160,6 +166,7 @@ def main():
     phase_card_route(tw, mk, rk, dev)
     phase_dim_split(tw, rk, dev, scan_s_per_it)
     ext = phase_external(tw, mk, rk, dev, warm, main_run, ext_attrs)
+    phase_examples(rk, dev)
     kernel = {"route": "cuda",
               "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
               "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
@@ -2429,6 +2436,84 @@ def _split_text(sp):
             f"{sp['torch_ms']:.4f} ms ({sp['torch_n']:.0f} kernels); the "
             f"card busy {sp['busy_ms']:.4f} ms, idle {sp['idle']:.1%} of "
             f"this wall")
+
+
+# Phase 12: the d = 2048 row of the port's gaussian-transient harness at
+# the JAX artifact's stamp (1024 chains, float32, 31 iterations), then
+# the same row in float64 at 50 chains over 4 iterations, card vs CPU.
+GT_DIM, GT_CHAINS, GT_ITERS = 2048, 1024, 31
+GT_F64_CHAINS, GT_F64_ITERS = 50, 4
+
+
+def _jax_transient_row(d):
+    """The JAX harness's committed row at ``d``
+    (examples/out_gaussian_transient.json)."""
+    rows = json.loads((HERE / "examples" / "out_gaussian_transient.json")
+                      .read_text())["rows"]
+    return next(r for r in rows if r["d"] == d)
+
+
+def phase_examples(rk, dev):
+    """12: the port's gaussian-transient harness (``walnuts_tpu_torch.
+    examples.gaussian_transient``; the scan engine, plain torch, no
+    hand-written kernel).  (a) its ``run_row`` at d = ``GT_DIM`` and the
+    JAX artifact's stamp: the harness's gate (every arm >= 95% of chains
+    inside the chi-square band within the iterations) must pass; each
+    arm's iterations to 95% beside the JAX artifact's, its s per
+    transition, and the round kernel's launches over the row (0).  (b)
+    each arm's run in float64 at ``GT_F64_CHAINS`` chains over
+    ``GT_F64_ITERS`` iterations on the card against the CPU: integer
+    diagnostics equal, everything within EXACT."""
+    import torch
+    from walnuts_tpu_torch.examples import gaussian_transient as gt
+    from walnuts_tpu_torch.utils.parity import EXACT
+
+    jax_row = _jax_transient_row(GT_DIM)
+    rk.launches = rk.segment_launches = 0
+    t0 = time.perf_counter()
+    row = gt.run_row(GT_DIM, chains=GT_CHAINS, iters=GT_ITERS,
+                     dtype=torch.float32, device=dev, log=lambda s: None)
+    wall = time.perf_counter() - t0
+    launches = rk.launches + rk.segment_launches
+    for tag, _, _ in gt.ARMS:
+        r = row[tag]
+        log(f"phase 12a gaussian_transient d={GT_DIM} C={GT_CHAINS} f32 "
+            f"{tag}: iters to 95% inside {r['iters_to_95pct_inside']} "
+            f"(JAX artifact {jax_row[tag]['iters_to_95pct_inside']}); "
+            f"{r['seconds']:.2f} s = {r['s_per_transition']:.4f} s per "
+            f"transition; the slowest chain's grad evals per transition "
+            f"{r['grad_evals_max_chain_per_transition']:.1f}; final "
+            f"fraction inside {r['frac_inside_by_iter'][-1]:.4f}")
+    failed = [tag for tag, _, _ in gt.ARMS
+              if not gt.passed(row[tag]["iters_to_95pct_inside"], GT_ITERS)]
+    if failed:
+        raise AssertionError(f"12a: {failed} missed the chi-square band "
+                             f"within {GT_ITERS} iterations")
+    if launches:
+        raise AssertionError(f"12a: {launches} round-kernel launches")
+    log(f"phase 12a gate passed: every arm >= 95% inside within "
+        f"{GT_ITERS} iterations; row wall {wall:.2f} s; round-kernel "
+        f"launches {launches}")
+
+    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    errs = {}
+    t0 = time.perf_counter()
+    for tag, _, _ in gt.ARMS:
+        kw = dict(chains=GT_F64_CHAINS, iters=GT_F64_ITERS,
+                  dtype=torch.float64)
+        s_g, d_g, _ = gt.run_arm(GT_DIM, tag, device=dev, **kw)
+        s_c, d_c, _ = gt.run_arm(GT_DIM, tag, device="cpu", **kw)
+        if s_g.device.type != torch.device(dev).type:
+            raise AssertionError("12b: the harness did not run on the card")
+        errs[tag] = max(_assert_same(f"12b {tag} sum q^2", s_c, s_g, EXACT),
+                        _assert_same(f"12b {tag} diagnostics", d_c, d_g,
+                                     EXACT, int_cols))
+    log(f"phase 12b gaussian_transient d={GT_DIM} f64 C={GT_F64_CHAINS}, "
+        f"{GT_F64_ITERS} iterations, card == CPU for every arm: integer "
+        f"diagnostics equal, max abs diff "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (rtol "
+        f"{EXACT['rtol']:g}, atol {EXACT['atol']:g}); "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def _counts(x):

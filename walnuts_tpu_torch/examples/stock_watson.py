@@ -56,7 +56,6 @@ exits non-zero if an arm of the proper model has split-Rhat >= 1.05.
 import argparse
 import json
 import math
-import subprocess
 import time
 import zlib
 from pathlib import Path
@@ -73,6 +72,7 @@ from ..sampler import round_kernel
 from ..targets import stock_watson
 from ..utils import threefry
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from .common import card_name
 
 # (tag, integrator, H0, igr kwargs, adaptive, m)
 # m per arm: the U-turn criterion ends SW orbits at span ~5-10 time
@@ -430,19 +430,6 @@ def gate(res):
               "(sw_innov.stan:40-42) — split-Rhat gate not applied")
     elif res["max_split_rhat_all"] >= RHAT_GATE:
         raise SystemExit("FAIL: a sampler has split-Rhat >= 1.05")
-
-
-def card_name():
-    """The card's name and power limit as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        return "nvidia-smi: unavailable"
-    return out[0] if out else "nvidia-smi: unavailable"
 
 
 def main(argv=None):
