@@ -66,7 +66,15 @@ gaussian_transient``, the scan engine) for its d = 2048 row at the JAX
 artifact's stamp (1024 chains, float32, 31 iterations, three arms)
 behind the harness's own gate, with each arm's iterations to 95% beside
 the JAX artifact's, then the same row in float64 (50 chains, 4
-iterations) on the card against the CPU.
+iterations) on the card against the CPU.  Phase 13 runs the port's last
+two scan-engine harnesses: (a) ``walnuts_tpu_torch.examples.
+gaussian_ess``'s program at d = 1024 (64 chains) for its three arms,
+with ESS per 1000 gradient evaluations beside the JAX artifact's row;
+(b) ``walnuts_tpu_torch.examples.highdim_variants``' ``im_std`` arm (the
+implicit midpoint, D = 10^4, 32 chains) for a few transitions behind
+the harness's z gate, with the fixed-point loop's host syncs; (c) its
+``im_illcond`` and ``iso_illcond`` arms at D = 16 in float64 on the
+card against the CPU.
 
 Run from the repository root, with no arguments:
 
@@ -167,6 +175,7 @@ def main():
     phase_dim_split(tw, rk, dev, scan_s_per_it)
     ext = phase_external(tw, mk, rk, dev, warm, main_run, ext_attrs)
     phase_examples(rk, dev)
+    phase_last_examples(rk, dev)
     kernel = {"route": "cuda",
               "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
               "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
@@ -681,11 +690,15 @@ def phase_timing(tw, mk, rk, dev, warm):
 
 
 # Phase 6 runs the README Quick start's width for this many warmup and
-# sampling transitions: at least 10 each, so that delta adaptation (from
-# iteration 11) runs, and few enough to keep the phase near 120 s.
-SCAN_WARMUP, SCAN_ITERS = 12, 12
+# sampling transitions: over 10 of warmup, so that delta adaptation (from
+# iteration 11) runs, and few enough to keep the phase near 40 s.
+SCAN_WARMUP, SCAN_ITERS = 12, 4
 SCAN_CHAINS, SCAN_DIM = 4096, 101     # the Quick start's C and funnel(D)
 STOP_CODES = (0, 4, -4, 5, 999)
+# The integer-valued diagnostics columns of the scan engine (24 columns)
+# and of generic NUTS (12), which card-vs-CPU checks hold equal.
+SCAN_INT_COLS = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+GENERIC_INT_COLS = [0, 1, 2, 3, 4, 5, 6, 7, 9, 10]
 
 
 def _scan_check(name, s, d, C, D, lead=1):
@@ -718,7 +731,7 @@ def phase_scan(tw, rk, dev):
     import torch
     from walnuts_tpu_torch.utils.parity import EXACT, assert_parity
 
-    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    int_cols = SCAN_INT_COLS
     float_cols = [i for i in range(24) if i not in int_cols]
     C, D = 64, 11
     q0 = 0.5 * np.random.default_rng(0).normal(size=(C, D))
@@ -817,16 +830,15 @@ def _profiled(fn):
 
 # Phase 7b streams this many transitions per chain at the README width
 # from 6b's adapted state (the README runs 2000; the cut keeps the run
-# near 40 s at the ~4 s per transition this phase measured on an H100,
-# so that the whole smoke, phase 9 included, stays near 600 s).
-STREAM_ITERS = 10
+# near 20 s at the ~4 s per transition this phase measured on an H100).
+STREAM_ITERS = 5
 # Phase 8b runs config 5's iso_std arm (D = 10^4, 32 chains, m = 9;
 # the example runs 400 iterations) for this many generic-NUTS
 # transitions, then the multinomial sampler (L = 20, no warmup) for this
-# many iterations; the cuts keep the phase near 60 s at the ~4.2 s per
+# many iterations; the cuts keep the phase near 30 s at the ~4.2 s per
 # transition and ~0.3 s per iteration this phase measured on an H100.
 ISO_DIM, ISO_CHAINS, ISO_M = 10000, 32, 9
-ISO_NUTS_ITERS, ISO_MULTI_ITERS = 8, 30
+ISO_NUTS_ITERS, ISO_MULTI_ITERS = 4, 15
 
 
 def _assert_same(name, want, got, contract, int_cols=()):
@@ -855,7 +867,7 @@ def phase_stream(tw, rk, dev, scan_state, scan_s_per_it):
     import torch
     from walnuts_tpu_torch.utils.parity import EXACT
 
-    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    int_cols = SCAN_INT_COLS
     C, D = 64, 11
     rng = np.random.default_rng(1)
     q0 = 0.5 * rng.normal(size=(C, D))
@@ -926,24 +938,6 @@ def phase_stream(tw, rk, dev, scan_state, scan_s_per_it):
         f"kernels per round")
 
 
-def _iso_target(tw, dim):
-    """Config 5's ``iso_std`` target (``examples/highdim_variants.py``):
-    a standard normal in ``dim`` dimensions with the generated quantities
-    ``[q_0 / sd_0, q_last / sd_last, sum (q / sd)^2]`` (sd = 1)."""
-    import torch
-
-    def logp_grad(q):
-        return -0.5 * torch.sum(q * q, dim=-1), -q
-
-    def generated(q):
-        return torch.stack([q[..., 0], q[..., -1],
-                            torch.sum(q * q, dim=-1)], dim=-1)
-
-    return tw.Target(lambda q: logp_grad(q)[0], dim,
-                     name=f"std_gauss_{dim}", generated=generated,
-                     logp_grad=logp_grad)
-
-
 def phase_iso(tw, rk, dev):
     """The isokinetic line on the card (plain torch: neither JAX path
     reaches a Pallas kernel).  (a) float64 std_gauss(5), C=16, m=5, on
@@ -972,7 +966,7 @@ def phase_iso(tw, rk, dev):
         s_c, d_c = sp.run_generic_nuts(11, q0, device="cpu", **kw)
         err = max(_assert_same(f"8a {kname} samples", s_c, s_g, EXACT),
                   _assert_same(f"8a {kname} diagnostics", d_c, d_g, EXACT,
-                               [0, 1, 2, 3, 4, 5, 6, 7, 9, 10]))
+                               GENERIC_INT_COLS))
         log(f"phase 8a generic NUTS ({kname}) f64 card == CPU: "
             f"std_gauss(5) C=16 m=5, 10 iterations: integer columns "
             f"equal, max abs float diff {err:.3e} (rtol {EXACT['rtol']:g}, "
@@ -995,9 +989,10 @@ def phase_iso(tw, rk, dev):
         f"{ADAPTIVE['rtol']:g}, atol {ADAPTIVE['atol']:g}); adapted H "
         f"median {float(out_g[2][0].median()):.4f}")
 
-    # (b) config 5's iso_std arm; the example's key and exact start
+    # (b) config 5's iso_std arm; the example's target, key and exact start
+    from walnuts_tpu_torch.examples import highdim_variants as hv
     C, D = ISO_CHAINS, ISO_DIM
-    target = _iso_target(tw, D)
+    target = hv.make_target("iso_std", D, torch.float32)
     key = threefry.PRNGKey(sum(map(ord, "iso_std")), dev)
     q0 = threefry.normal(key, (C, D), torch.float32)
     h = 1.4 * D ** -0.25
@@ -1870,7 +1865,7 @@ def phase_card_route(tw, mk, rk, dev):
 # 10e(b) runs this many transitions of 6b's run (the README width, from
 # 6b's start) on a (2, 2) mesh of gloo ranks sharing the card, and times
 # this many dim-group all-reduces at its shape.
-DIM_ITERS, DIM_COLL_REPS = 3, 200
+DIM_ITERS, DIM_COLL_REPS = 1, 200
 
 
 def _dim_exact_runs(tw, dev, mesh=None):
@@ -2029,7 +2024,7 @@ def phase_dim_split(tw, rk, dev, scan_s_per_it):
     from walnuts_tpu_torch.utils.parity import (ADAPTIVE, ENERGY_RANGE,
                                                 ENERGY_RANGE_COL, EXACT)
 
-    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    int_cols = SCAN_INT_COLS
     one_exact = _dim_exact_runs(tw, dev)
     one_b = _part_b_runs(tw, dev)
     t0 = time.perf_counter()
@@ -2495,7 +2490,7 @@ def phase_examples(rk, dev):
         f"{GT_ITERS} iterations; row wall {wall:.2f} s; round-kernel "
         f"launches {launches}")
 
-    int_cols = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
+    int_cols = SCAN_INT_COLS
     errs = {}
     t0 = time.perf_counter()
     for tag, _, _ in gt.ARMS:
@@ -2514,6 +2509,105 @@ def phase_examples(rk, dev):
         f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (rtol "
         f"{EXACT['rtol']:g}, atol {EXACT['atol']:g}); "
         f"{time.perf_counter() - t0:.2f} s")
+
+
+# Phase 13: (a) the d = 2^GE_LOG2D program of the port's gaussian_ess
+# harness at its chains_for batch for GE_ITERS transitions per arm (the
+# harness's default is 1000); (b) highdim_variants' im_std arm at its
+# full width for HD_ITERS transitions in chunks of HD_CHUNK (400 in
+# chunks of 50 by default); (c) its im_illcond and iso_illcond arms at
+# D = HD_F64_DIM, float64, card against CPU.
+GE_LOG2D, GE_CHAINS, GE_ITERS = 10, 64, 25
+HD_DIM, HD_CHAINS, HD_ITERS, HD_CHUNK = 10000, 32, 20, 10
+HD_F64_DIM, HD_F64_CHAINS, HD_F64_ITERS, HD_F64_CHUNK = 16, 8, 2, 1
+
+
+def _jax_ess_row(d):
+    """The JAX harness's committed row at ``d``
+    (examples/out_gaussian_ess.json)."""
+    rows = json.loads((HERE / "examples" / "out_gaussian_ess.json")
+                      .read_text())["rows"]
+    return next(r for r in rows if r["d"] == d)
+
+
+def phase_last_examples(rk, dev):
+    """13: the port's gaussian_ess and highdim_variants harnesses
+    (``walnuts_tpu_torch.examples``; the scan engine and generic NUTS,
+    plain torch, no hand-written kernel).  (a) ``gaussian_ess.run_one``
+    at d = 2^``GE_LOG2D`` for each arm: ESS per 1000 gradient
+    evaluations of q_0 and sum q^2 beside the JAX artifact's row, finite
+    and positive, and 0 round-kernel launches.  (b) ``highdim_variants``'
+    ``im_std`` arm at D = ``HD_DIM``, ``HD_CHAINS`` chains: its z-scores
+    behind the harness's gate (every |z| < 4), its s per transition and
+    the implicit midpoint's fixed-point host syncs per transition.  (c)
+    the ``im_illcond`` and ``iso_illcond`` arms at D = ``HD_F64_DIM`` in
+    float64 on the card against the CPU: integer diagnostics equal,
+    everything within EXACT."""
+    import math
+    import torch
+    from walnuts_tpu_torch.examples import gaussian_ess as ge
+    from walnuts_tpu_torch.examples import highdim_variants as hv
+    from walnuts_tpu_torch.utils.parity import EXACT
+
+    d = 2 ** GE_LOG2D
+    jax_row = _jax_ess_row(d)
+    rk.launches = rk.segment_launches = 0
+    t0 = time.perf_counter()
+    for integ, tag in ge.INTEGRATORS:
+        r = ge.run_one(GE_LOG2D, integ, GE_CHAINS, GE_ITERS, device=dev)
+        effs = [r["ess_per_1000_grad_q0"], r["ess_per_1000_grad_sumsq"]]
+        if not all(math.isfinite(e) and e > 0 for e in effs):
+            raise AssertionError(f"13a {tag}: ESS per 1000 grads {effs}")
+        log(f"phase 13a gaussian_ess d={d} C={r['chains']} f32 {tag}, "
+            f"{GE_ITERS} transitions: ESS per 1000 grads (q0, sum q^2) "
+            f"{effs[0]:.2f}, {effs[1]:.2f} (JAX artifact, 1000 "
+            f"transitions: {jax_row[tag]['ess_per_1000_grad_q0']:.2f}, "
+            f"{jax_row[tag]['ess_per_1000_grad_sumsq']:.2f}); "
+            f"{r['s_per_transition']:.4f} s per transition; the slowest "
+            f"chain's grad evals per transition "
+            f"{r['grad_evals_max_chain_per_transition']:.1f}; peak "
+            f"{r.get('peak_memory_bytes', 0) / 2 ** 20:.1f} MiB")
+    launches = rk.launches + rk.segment_launches
+    if launches:
+        raise AssertionError(f"13a: {launches} round-kernel launches")
+    log(f"phase 13a: {time.perf_counter() - t0:.2f} s; round-kernel "
+        f"launches {launches}")
+
+    r = hv.run_arm("im_std", dim=HD_DIM, chains=HD_CHAINS, iters=HD_ITERS,
+                   chunk=HD_CHUNK, device=dev)
+    z = {k: round(r[k], 3) for k in ("z_mean_q0", "z_mean_qlast",
+                                     "z_radius_sq")}
+    log(f"phase 13b highdim_variants im_std D={HD_DIM} C={HD_CHAINS} f32, "
+        f"{HD_ITERS} transitions in chunks of {HD_CHUNK}: z {z}; "
+        f"{r['s_per_transition']:.4f} s per transition; "
+        f"{r['grad_evals_per_s']:.1f} grad-evals/s; the slowest chain's "
+        f"grad evals per transition "
+        f"{r['grad_evals_max_chain_per_transition']:.1f}; fixed-point host "
+        f"syncs per transition {r['fixed_point_syncs_per_transition']:.1f}; "
+        f"radius mean {r['radius_sq_mean']:.1f} against {HD_DIM}; "
+        f"round-kernel launches {rk.launches + rk.segment_launches}")
+    if not hv.max_abs_z(r) < hv.Z_GATE:
+        raise AssertionError(f"13b: |z| {hv.max_abs_z(r):.3f} >= "
+                             f"{hv.Z_GATE}")
+
+    t0 = time.perf_counter()
+    int_cols = {"im": SCAN_INT_COLS, "iso": GENERIC_INT_COLS}
+    for arm in ("im_illcond", "iso_illcond"):
+        q0 = hv.start(arm, HD_F64_CHAINS, HD_F64_DIM, torch.float64)
+        kw = dict(iters=HD_F64_ITERS, chunk=HD_F64_CHUNK)
+        s_g, d_g, _, _, syncs = hv.sample(arm, q0, device=dev, **kw)
+        s_c, d_c, _, _, _ = hv.sample(arm, q0, device="cpu", **kw)
+        cols = int_cols[arm.split("_")[0]]
+        err = max(_assert_same(f"13c {arm} draws", s_c, s_g, EXACT),
+                  _assert_same(f"13c {arm} diagnostics", d_c, d_g, EXACT,
+                               cols))
+        log(f"phase 13c highdim_variants {arm} D={HD_F64_DIM} "
+            f"C={HD_F64_CHAINS} f64, {HD_F64_ITERS} iterations, card == "
+            f"CPU: integer diagnostics equal, max abs diff {err:.3e} (rtol "
+            f"{EXACT['rtol']:g}, atol {EXACT['atol']:g})"
+            + (f"; fixed-point host syncs {syncs}" if arm.startswith("im_")
+               else ""))
+    log(f"phase 13c: {time.perf_counter() - t0:.2f} s")
 
 
 def _counts(x):

@@ -15,7 +15,13 @@ PORT_DIR defaults to ``walnuts_tpu_torch/examples``, JAX_DIR to
   NUTS/WALNUTS cost ratio and the gates;
 * ``out_funnel_transient_native_s{1,2}.json``: whether every trace
   equals the JAX one, the first iteration where one differs, and the
-  recovery statistics.
+  recovery statistics;
+* ``out_gaussian_ess.json``: the fitted slope and its standard error,
+  both sides, and per dimension each arm's ESS per 1000 gradient
+  evaluations of q_0 and sum q^2 and the port's s per transition;
+* ``out_highdim_variants.json``: per arm the z-scores, ESS and grad
+  evaluations per transition per chain, both sides, and the port's s
+  per transition and fixed-point host syncs per transition.
 
 Runs on the CPU; reads the files only.
 """
@@ -90,11 +96,47 @@ def native(port, jax):
             "port_seconds": port.get("seconds")}
 
 
+def gaussian_ess(port, jax):
+    jr = {r["d"]: r for r in jax["rows"]}
+    keys = ("fit_slope_log_ess_vs_log_d", "fit_slope_stderr")
+    return {"summary": {k: [port["summary"][k], jax["summary"][k]]
+                        for k in keys},
+            "reduced": port.get("reduced"), **{
+        r["d"]: {tag: {"q0": [r[tag]["ess_per_1000_grad_q0"],
+                              jr[r["d"]][tag]["ess_per_1000_grad_q0"]],
+                       "sumsq": [r[tag]["ess_per_1000_grad_sumsq"],
+                                 jr[r["d"]][tag]["ess_per_1000_grad_sumsq"]],
+                       "port_s_per_transition": r[tag]["s_per_transition"]}
+                 for tag in ("walnuts_r2p", "walnuts_d", "nuts")}
+        for r in port["rows"] if r["d"] in jr}}
+
+
+def highdim_variants(port, jax):
+    keys = ("z_mean_q0", "z_mean_qlast", "z_radius_sq", "ess_q0",
+            "ess_radius_sq", "sd_q0")
+
+    def per_chain(r):
+        return r["grad_evals"] / r["chains"] / r["iters"]
+
+    return {"max_abs_z_all": [port["max_abs_z_all"], jax["max_abs_z_all"]],
+            "reduced": port.get("reduced"), **{
+        arm: {**{k: [r[k], jax["runs"][arm][k]] for k in keys},
+              "grads_per_chain_per_transition": [
+                  per_chain(r), per_chain(jax["runs"][arm])],
+              "iters": [r["iters"], jax["runs"][arm]["iters"]],
+              "port_s_per_transition": r["s_per_transition"],
+              "port_fixed_point_syncs_per_transition":
+                  r.get("fixed_point_syncs_per_transition")}
+        for arm, r in port["runs"].items() if arm in jax["runs"]}}
+
+
 ARTIFACTS = {"out_gaussian_transient.json": gaussian_transient,
              "out_funnel_orbit_len.json": funnel_orbit_len,
              "out_funnel.json": funnel,
              "out_funnel_transient_native_s1.json": native,
-             "out_funnel_transient_native_s2.json": native}
+             "out_funnel_transient_native_s2.json": native,
+             "out_gaussian_ess.json": gaussian_ess,
+             "out_highdim_variants.json": highdim_variants}
 
 
 def main(argv):

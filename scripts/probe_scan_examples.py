@@ -3,7 +3,7 @@
 project the full run's wall from it.
 
     python3 scripts/probe_scan_examples.py [--iters 20] [--out FILE]
-        [--only funnel_orbit_len funnel multistep]
+        [--only funnel_orbit_len funnel multistep gaussian_ess highdim]
 
 (gaussian_transient's d = 2048 row is chip_smoke's phase 12a.)
 
@@ -18,7 +18,14 @@ project the full run's wall from it.
   times the gradient evaluations of the native artifacts' chains
   (``examples/out_funnel_transient_native_s{1,2}.json``: the scan
   engine's host loop makes one iteration per gradient evaluation of
-  its slowest chain).
+  its slowest chain);
+* ``gaussian_ess``: ``--iters`` transitions of each arm's first replica
+  at every dimension 2^8..2^18, at its ``chains_for`` batch, projected
+  to the harness's 1000 per replica;
+* ``highdim``: ``--iters`` transitions of each of the four arms at the
+  harness's defaults (D = 10^4, 32 chains, float32; the implicit
+  midpoint in one chunk), with the fixed-point loop's host syncs,
+  projected to its 400 per arm.
 
 Each section prints one JSON line, with the card's name and power
 limit; ``--out`` collects them.  Runs on the card unless ``--device
@@ -93,8 +100,43 @@ def probe_multistep(dev, iters, n=200):
             "projected_seconds": [wall / n * g for g in grads]}
 
 
+def probe_gaussian_ess(dev, iters):
+    from walnuts_tpu_torch.examples import gaussian_ess as ge
+    rows, full = [], 0.0
+    for log2d in range(8, 19):
+        d = 2 ** log2d
+        n_rep = -(-64 // ge.chains_for(d, 64))
+        for integ, tag in ge.INTEGRATORS:
+            r = ge.run_one(log2d, integ, 64, iters, device=dev)
+            full += r["s_per_transition"] * n_rep * 1000
+            rows.append({"d": d, "arm": tag, "replicas": n_rep, **{
+                k: r[k] for k in ("chains", "s_per_transition",
+                                  "grad_evals_max_chain_per_transition",
+                                  "ess_per_1000_grad_q0")},
+                "peak_memory_bytes": r.get("peak_memory_bytes")})
+            print(json.dumps(rows[-1]), flush=True)
+    return {"rows": rows, "projected_full_seconds": full}
+
+
+def probe_highdim(dev, iters):
+    from walnuts_tpu_torch.examples import highdim_variants as hv
+    arms = {}
+    for arm in hv.ARMS:
+        r = hv.run_arm(arm, iters=iters, chunk=iters, device=dev)
+        arms[arm] = {k: r[k] for k in (
+            "s_per_transition", "grad_evals_per_s",
+            "grad_evals_max_chain_per_transition", "z_mean_q0",
+            "z_mean_qlast", "z_radius_sq")}
+        arms[arm]["fixed_point_syncs_per_transition"] = r.get(
+            "fixed_point_syncs_per_transition")
+        print(json.dumps({arm: arms[arm]}), flush=True)
+    return {"arms": arms, "projected_full_seconds": sum(
+        a["s_per_transition"] for a in arms.values()) * 400}
+
+
 PROBES = {"funnel_orbit_len": probe_orbit_len, "funnel": probe_funnel,
-          "multistep": probe_multistep}
+          "multistep": probe_multistep, "gaussian_ess": probe_gaussian_ess,
+          "highdim": probe_highdim}
 
 
 def main(argv=None):

@@ -6,10 +6,11 @@ harness's (``examples/out_stock_watson.json``) by default.
     python3 scripts/sw_band_gaps.py [PORT_JSON [JAX_JSON]]
 
 For each arm both artifacts hold, one JSON line: each artifact's
-all-coordinate split-Rhat and stamp, the band gap (the largest
-difference of the 12 band statistics: sigma, z, x, tau at q10, q50,
-q90) and the statistic it falls on.  Runs on the CPU; reads the two
-files only.
+all-coordinate split-Rhat (the subsampled one where an older JAX
+artifact has no other), whether the stamps agree, the band gap (the
+largest difference of the 12 band statistics: sigma, z, x, tau at q10,
+q50, q90) and the statistic it falls on.  Runs on the CPU; reads the
+two files only.
 """
 
 import json
@@ -20,6 +21,13 @@ HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
 
 from walnuts_tpu_torch.examples.stock_watson import band_gap  # noqa: E402
+
+
+def _rhat(run):
+    """The arm's all-coordinate split-Rhat, or (an artifact of the JAX
+    harness before its version 6, which has none) the subsampled one."""
+    return run.get("max_split_rhat_all_coords",
+                   run.get("max_split_rhat_subsampled"))
 
 
 def main(argv):
@@ -41,8 +49,7 @@ def main(argv):
                                        - rb["bands"][kq[0]][kq[1]]))
         print(json.dumps({
             "arm": tag, "band_gap": gap, "at": ".".join(where),
-            "split_rhat": ra["max_split_rhat_all_coords"],
-            "split_rhat_ref": rb["max_split_rhat_all_coords"],
+            "split_rhat": _rhat(ra), "split_rhat_ref": _rhat(rb),
             "stamp_equal": ra.get("stamp") == rb.get("stamp")}))
 
 

@@ -19,6 +19,12 @@ import torch
 from ..parallel.mesh import NEWTON_DIM_SPLIT_ITEM, current_dim_split, dim_max
 from .hamiltonian import hamiltonian
 
+# Host syncs made by the implicit-midpoint solve's loop test (``bool(
+# any(~done))``) since the caller last set it to 0: one per fixed-point
+# iteration, and one more where the loop ends on convergence rather
+# than at ``max_fp_iter``.
+fixed_point_syncs = 0
+
 # 4th-order Yoshida composition coefficients
 # (reference ``adaptiveIntegrators.py:143-144``).
 YOSHIDA_W1 = 1.351207191959658
@@ -150,6 +156,8 @@ def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
         nev = nev + (~done).to(torch.int32)
         done = done | newly_conv | diverged
         it += 1
+    global fixed_point_syncs
+    fixed_point_syncs += it + (it < max_fp_iter)
 
     # final midpoint evaluation at the converged qt, then the update
     # (reference ``adaptiveIntegrators.py:528-540``)
