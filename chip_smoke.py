@@ -50,6 +50,12 @@ transition beside 6b's, its dim-group collectives per transition and
 their ms, its stop codes and depths.  10f runs the streaming engine
 (both draws), generic NUTS and the multinomial sampler with their
 chains over two ranks against one process on the card, under EXACT.
+10g runs them on the whole (2, 2) mesh (each rank its chains and its
+columns), with the implicit midpoint's Newton mode: (a) float64 against
+one process on the card, under EXACT without adaptation and ADAPTIVE
+for the multinomial sampler's warmup; (b) one generic-NUTS iteration of
+8b's ``iso_std`` arm at full width (D = 10^4 split 5000 + 5000), with
+its wall and dim-group collectives beside 8b's s per iteration.
 Phase 11 runs targets without a fused gradient through
 the kernel's external-gradient instantiation (a period is ``16 *
 micro_unroll + 1`` segment launches with the target's torch
@@ -164,7 +170,7 @@ def main():
     ms, plain_ms, bound_ms, bound_by = phase_timing(tw, mk, rk, dev, warm)
     scan_state, scan_s_per_it = phase_scan(tw, rk, dev)
     phase_stream(tw, rk, dev, scan_state, scan_s_per_it)
-    phase_iso(tw, rk, dev)
+    iso_s_per_it = phase_iso(tw, rk, dev)
     sw, mode = phase_sw(tw, mk, rk, dev)
     phase_sw_arms(tw, mk, rk, dev, mode)
     phase_modes(tw, rk, dev)
@@ -172,7 +178,7 @@ def main():
     phase_ranks_main(tw, mk, rk, dev, main_run)
     phase_native(tw, mk, rk, dev)
     phase_card_route(tw, mk, rk, dev)
-    phase_dim_split(tw, rk, dev, scan_s_per_it)
+    phase_dim_split(tw, rk, dev, scan_s_per_it, iso_s_per_it)
     ext = phase_external(tw, mk, rk, dev, warm, main_run, ext_attrs)
     phase_examples(rk, dev)
     phase_last_examples(rk, dev)
@@ -947,7 +953,8 @@ def phase_iso(tw, rk, dev):
     ``iso_std`` arm at full width: D = 10^4, 32 chains, m = 9, h_macro =
     1.4 D^-1/4, delta = 0.2, float32, ``IsokineticKernel``, from an exact
     stationary start; then ``run_multinomial`` (isokinetic, L = 20) on
-    the same target and width."""
+    the same target and width.  Returns (b)'s generic-NUTS s per
+    iteration."""
     import numpy as np
     import torch
     from walnuts_tpu_torch.diagnostics import ess_per_grad
@@ -1034,6 +1041,7 @@ def phase_iso(tw, rk, dev):
             f"(q0, q_last, radius) {[round(float(x), 3) for x in epg]}; "
             f"radius mean {float(draws[..., 2].mean()):.1f} against D = {D}; "
             f"{extra}; round-kernel launches {rk.launches}")
+    return runs[0][2] / runs[0][1]
 
 
 # Phase 9b runs the walnuts_d arm of examples/stock_watson.py at its
@@ -1858,14 +1866,23 @@ def phase_card_route(tw, mk, rk, dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 10e-10f: the scan engine on a (chains, dim) mesh, and the
-# streaming engine and the isokinetic line with their chains over ranks
+# phases 10e-10g: the scan engine on a (chains, dim) mesh, the streaming
+# engine and the isokinetic line with their chains over ranks, then on
+# the (chains, dim) mesh
 # ---------------------------------------------------------------------------
 
 # 10e(b) runs this many transitions of 6b's run (the README width, from
 # 6b's start) on a (2, 2) mesh of gloo ranks sharing the card, and times
 # this many dim-group all-reduces at its shape.
 DIM_ITERS, DIM_COLL_REPS = 1, 200
+# 10g(a) runs 10f's streaming and generic-NUTS cases for this many
+# transitions (10f runs 10) and the Newton case for DIM_NEWTON_ITERS;
+# 10g(b) runs this many generic-NUTS iterations of 8b's iso_std arm on
+# the (2, 2) mesh.  The cuts keep 10g near 60 s at the 3-6 ms per
+# dim-group collective measured there on an H100.
+DIM_B_ITERS, DIM_NEWTON_ITERS, DIM_ISO_ITERS = 3, 1, 1
+# the multinomial diagnostics that are integers (its DIAG_COLS)
+MULTI_INT_COLS = [1, 2, 3, 4, 6, 9]
 
 
 def _dim_exact_runs(tw, dev, mesh=None):
@@ -1897,16 +1914,21 @@ def _dim_exact_runs(tw, dev, mesh=None):
     return out
 
 
-def _part_b_runs(tw, dev, mesh=None):
-    """10f: float64 runs of the streaming engine (hash and global draws;
-    funnel(11), 16 chains, m=5, R2P, per-chain tuning, 10 transitions),
-    generic NUTS (isokinetic kernel, std_gauss(5), 16 chains, m=5, 10
-    iterations) and the multinomial sampler (isokinetic, L=12, 12 warmup
-    + 2 iterations), each chain's results joined over ``mesh``."""
+def _part_b_runs(tw, dev, mesh=None, counts=None, iters=10):
+    """10f and 10g(a): float64 runs of the streaming engine (hash and
+    global draws; funnel(11), 16 chains, m=5, R2P, per-chain tuning,
+    ``iters`` transitions), generic NUTS (isokinetic kernel,
+    std_gauss(5), 16 chains, m=5, ``iters`` iterations) and the
+    multinomial sampler (isokinetic, L=12, 12 warmup + 2 iterations),
+    each run's results joined over
+    ``mesh``'s axes: its chains of a 1-D mesh, its chains and columns
+    (funnel(11) 6 + 5, std_gauss(5) 3 + 2) of a (chains, dim) one.
+    ``counts`` (a dict) gets each run's dim-group collectives."""
     import numpy as np
     import torch
     from walnuts_tpu_torch import parallel
-    from walnuts_tpu_torch.diagnostics import gather_chains
+    from walnuts_tpu_torch.diagnostics import gather_blocks
+    from walnuts_tpu_torch.parallel import mesh as pm
 
     sp, C = tw.sampler, 16
     rng = np.random.default_rng(8)
@@ -1914,36 +1936,122 @@ def _part_b_runs(tw, dev, mesh=None):
     q5 = torch.from_numpy(0.8 * rng.normal(size=(C, 5))).to(dev)
     h = torch.linspace(0.25, 0.5, C, dtype=torch.float64, device=dev)
     dl = torch.linspace(0.08, 0.3, C, dtype=torch.float64, device=dev)
-    q11, q5, h, dl = parallel.shard_chains((q11, q5, h, dl), mesh)
-    out = {}
-    for rng_mode in ("hash", "global"):
+    q11, q5, h, dl = parallel.shard_chains_dim((q11, q5, h, dl), mesh)
+
+    def cols(x, chain_dim=1):
+        return gather_blocks(x, mesh, chain_dim)
+
+    def rows(x, chain_dim=1):
+        return gather_blocks(x, mesh, chain_dim, cols=False)
+
+    def run(name, fn):
+        pm.dim_collectives = 0
+        out[name] = fn()
+        if counts is not None:
+            counts[name] = pm.dim_collectives
+
+    def streaming(rng_mode):
         s, d, qf = sp.run_walnuts_streaming(
             5, q11, h, dl, target=tw.targets.funnel(11),
-            cfg=tw.WalnutsConfig(m=5), num_iter=10, rng=rng_mode,
+            cfg=tw.WalnutsConfig(m=5), num_iter=iters, rng=rng_mode,
             device=dev, mesh=mesh)
-        out[f"streaming {rng_mode}"] = [gather_chains(s, mesh),
-                                        gather_chains(d, mesh),
-                                        parallel.gather_rows(qf, mesh)]
-    s, d = sp.run_generic_nuts(
-        11, q5, target=tw.targets.std_gauss(5), kernel=sp.IsokineticKernel(),
-        h_macro=0.5, delta=0.1, num_iter=10, m=5, device=dev, mesh=mesh)
-    out["generic NUTS"] = [gather_chains(s, mesh), gather_chains(d, mesh)]
-    s, d, (hm, dm) = sp.run_multinomial(
-        17, q5, target=tw.targets.std_gauss(5), kernel=sp.IsokineticKernel(),
-        cfg=sp.MultinomialConfig(l_orbit=12), h0=0.6, delta0=0.2,
-        num_iter=14, warmup_iter=12, device=dev, mesh=mesh)
-    out["multinomial"] = [gather_chains(s, mesh), gather_chains(d, mesh),
-                          parallel.gather_rows(hm, mesh),
-                          parallel.gather_rows(dm, mesh)]
+        return [cols(s), rows(d), cols(qf, 0)]
+
+    def generic():
+        s, d = sp.run_generic_nuts(
+            11, q5, target=tw.targets.std_gauss(5),
+            kernel=sp.IsokineticKernel(), h_macro=0.5, delta=0.1,
+            num_iter=iters, m=5, device=dev, mesh=mesh)
+        return [cols(s), rows(d)]
+
+    def multinomial():
+        s, d, (hm, dm) = sp.run_multinomial(
+            17, q5, target=tw.targets.std_gauss(5),
+            kernel=sp.IsokineticKernel(),
+            cfg=sp.MultinomialConfig(l_orbit=12), h0=0.6, delta0=0.2,
+            num_iter=14, warmup_iter=12, device=dev, mesh=mesh)
+        return [cols(s), rows(d), rows(hm, 0), rows(dm, 0)]
+
+    out = {}
+    for rng_mode in ("hash", "global"):
+        run(f"streaming {rng_mode}", lambda: streaming(rng_mode))
+    run("generic NUTS", generic)
+    run("multinomial", multinomial)
     return out
 
 
+def _newton_runs(tw, dev, mesh=None, counts=None):
+    """10g(a): float64 funnel(11), 16 chains (columns 6 + 5 on a dim
+    split), m=4, the implicit midpoint in Newton mode with a ``[D]``
+    inverse mass, ``DIM_NEWTON_ITERS`` transitions without adaptation:
+    samples, diagnostics and final positions, joined over ``mesh``'s
+    axes."""
+    import numpy as np
+    import torch
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.diagnostics import gather_blocks
+    from walnuts_tpu_torch.parallel import mesh as pm
+
+    C, D = 16, 11
+    rng = np.random.default_rng(9)
+    q0 = torch.from_numpy(0.5 * rng.normal(size=(C, D))).to(dev)
+    pm.dim_collectives = 0
+    s, d, st = tw.run_walnuts(
+        6, parallel.shard_chains_dim(q0, mesh), target=tw.targets.funnel(D),
+        cfg=tw.WalnutsConfig(m=4, integrator="adapt_implicit_midpoint_d",
+                             use_inv_mass=True,
+                             igr=tw.ops.IntegratorConfig(fp_newton=True)),
+        warmup=tw.WarmupConfig(warmup_iter=0), num_iter=DIM_NEWTON_ITERS,
+        h0=0.4, delta0=0.15,
+        inv_mass=torch.linspace(0.6, 1.5, D, dtype=torch.float64),
+        device=dev, mesh=mesh)
+    if counts is not None:
+        counts["Newton"] = pm.dim_collectives
+    return {"Newton": [gather_blocks(s, mesh), gather_blocks(d, mesh,
+                                                             cols=False),
+                       gather_blocks(st.q, mesh, 0)]}
+
+
+def _iso_dim_run(tw, dev, mesh):
+    """10g(b): ``DIM_ISO_ITERS`` generic-NUTS iterations of 8b's iso_std
+    arm (isokinetic kernel, D = 10^4, 32 chains, m = 9, f32, the
+    example's key and exact start) on the rank's block of ``mesh``: its
+    wall, dim-group collectives and own diagnostics, and the joined
+    draws and diagnostics."""
+    import torch
+    from walnuts_tpu_torch import parallel
+    from walnuts_tpu_torch.diagnostics import gather_blocks
+    from walnuts_tpu_torch.examples import highdim_variants as hv
+    from walnuts_tpu_torch.parallel import mesh as pm
+    from walnuts_tpu_torch.utils import threefry
+
+    C, D = ISO_CHAINS, ISO_DIM
+    target = hv.make_target("iso_std", D, torch.float32)
+    key = threefry.PRNGKey(sum(map(ord, "iso_std")), dev)
+    q = parallel.shard_chains_dim(threefry.normal(key, (C, D),
+                                                  torch.float32), mesh)
+    pm.dim_collectives = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, d = tw.sampler.run_generic_nuts(
+        threefry.fold_in(key, 1), q, target=target,
+        kernel=tw.sampler.IsokineticKernel(), h_macro=1.4 * D ** -0.25,
+        delta=0.2, num_iter=DIM_ISO_ITERS, m=ISO_M, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0, coll=pm.dim_collectives,
+                block=tuple(q.shape), diag_local=d.cpu(),
+                draws=gather_blocks(s, mesh, cols=False).cpu(),
+                diag=gather_blocks(d, mesh, cols=False).cpu())
+
+
 def rank_dim_split():
-    """10e and 10f, on each rank of a (2, 2) mesh: (a) the float64 runs
-    on the rank's block, (b) 6b's run at the README width for
-    ``DIM_ITERS`` transitions with its dim-group collectives counted and
-    then timed, and 10f's runs on the rank's chains of the mesh's chains
-    axis (two ranks; both columns of the mesh run them alike)."""
+    """10e, 10f and 10g, on each rank of a (2, 2) mesh: 10e (a) the
+    float64 runs on the rank's block, (b) 6b's run at the README width
+    for ``DIM_ITERS`` transitions with its dim-group collectives counted
+    and then timed; 10f's runs on the rank's chains of the mesh's chains
+    axis (two ranks; both columns of the mesh run them alike); 10g (a)
+    the same runs and the Newton mode on the rank's block of the whole
+    mesh, (b) 8b's iso_std arm there."""
     import torch
     import walnuts_tpu_torch as tw
     from walnuts_tpu_torch import parallel
@@ -1994,6 +2102,13 @@ def rank_dim_split():
             parallel.dim_sum(x[0], x[1])
         torch.cuda.synchronize()
     out["coll_ms"] = (time.perf_counter() - t0) / DIM_COLL_REPS * 1e3
+
+    counts = {}
+    t0 = time.perf_counter()
+    out["dim_b"] = host({**_part_b_runs(tw, dev, mesh, counts, DIM_B_ITERS),
+                         **_newton_runs(tw, dev, mesh, counts)})
+    out.update(dim_b_coll=counts, dim_b_wall=time.perf_counter() - t0)
+    out["iso"] = _iso_dim_run(tw, dev, mesh)
     return out
 
 
@@ -2007,7 +2122,7 @@ def _within(name, want, got, contract, int_cols=()):
     return err, torch.equal(want.cpu(), got.cpu())
 
 
-def phase_dim_split(tw, rk, dev, scan_s_per_it):
+def phase_dim_split(tw, rk, dev, scan_s_per_it, iso_s_per_it):
     """10e: the scan engine on a (2, 2) mesh of four gloo ranks on the
     card (chains over the mesh's rows, columns over its columns, every
     sum over D all-reduced over the dim group): (a) float64 against one
@@ -2018,7 +2133,13 @@ def phase_dim_split(tw, rk, dev, scan_s_per_it):
     transition and their ms, stop codes and depths; the gate is finite
     results and valid stop codes.  10f: the streaming engine (both
     draws), generic NUTS and the multinomial sampler over two ranks
-    against one process on the card, under EXACT."""
+    against one process on the card, under EXACT.  10g: (a) the same
+    runs and the Newton mode on the whole mesh against one process on
+    the card, under EXACT and (the multinomial sampler's warmup)
+    ADAPTIVE; (b) one generic-NUTS iteration of 8b's iso_std arm there,
+    beside ``iso_s_per_it`` (8b's s per iteration): its wall, dim-group
+    collectives per iteration, finite draws and the same diagnostics
+    rows within each dim group."""
     import torch
     from walnuts_tpu_torch.parallel import run_ranks
     from walnuts_tpu_torch.utils.parity import (ADAPTIVE, ENERGY_RANGE,
@@ -2027,6 +2148,8 @@ def phase_dim_split(tw, rk, dev, scan_s_per_it):
     int_cols = SCAN_INT_COLS
     one_exact = _dim_exact_runs(tw, dev)
     one_b = _part_b_runs(tw, dev)
+    one_g = {**_part_b_runs(tw, dev, iters=DIM_B_ITERS),
+             **_newton_runs(tw, dev)}
     t0 = time.perf_counter()
     outs = run_ranks(rank_dim_split, 4, timeout=600, device=RANKS_ON)
     wall = time.perf_counter() - t0
@@ -2081,7 +2204,7 @@ def phase_dim_split(tw, rk, dev, scan_s_per_it):
         f"{r0['depth_max']}, worst refinement {r0['c_max']}; {r0['grads']} "
         f"grad evals; round-kernel launches per rank "
         f"{[o['launches'] for o in outs]}; {wall:.1f} s with the ranks' "
-        f"start and 10f; on {CARD}")
+        f"start, 10f and 10g; on {CARD}")
 
     for name, want in one_b.items():
         errs, bits = [], []
@@ -2099,6 +2222,62 @@ def phase_dim_split(tw, rk, dev, scan_s_per_it):
     if any(o["launches"] for o in outs):
         raise AssertionError("10e(b): the scan engine launched the round "
                              "kernel")
+
+    # 10g(a): the whole mesh against one process
+    int_cols = {"streaming hash": SCAN_INT_COLS,
+                "streaming global": SCAN_INT_COLS,
+                "generic NUTS": GENERIC_INT_COLS,
+                "multinomial": MULTI_INT_COLS, "Newton": SCAN_INT_COLS}
+    for name, want in one_g.items():
+        contract = ADAPTIVE if name == "multinomial" else EXACT
+        errs, bits = [], []
+        for rank in outs:
+            for i, (w, g) in enumerate(zip(want, rank["dim_b"][name])):
+                e, b = _within(f"10g(a) {name} output {i}", w, g, contract,
+                               int_cols[name] if i == 1 else ())
+                errs.append(e)
+                bits.append(b)
+        log(f"phase 10g(a) {name} on a (2, 2) mesh of gloo ranks on the "
+            f"card, f64, 8 chains and half the columns per rank: joined == "
+            f"one process on the card within "
+            f"{'EXACT' if contract is EXACT else 'ADAPTIVE'} (rtol "
+            f"{contract['rtol']:g}, atol {contract['atol']:g}), integer "
+            f"diagnostics equal, max abs diff {max(errs):.3e}, bitwise "
+            f"{all(bits)}; dim-group collectives per rank "
+            f"{[o['dim_b_coll'][name] for o in outs]}")
+
+    a_wall = max(o["dim_b_wall"] for o in outs)
+    log(f"phase 10g(a) wall on the ranks {a_wall:.2f} s (slowest rank) for "
+        f"{DIM_B_ITERS} streaming and generic-NUTS transitions, the "
+        f"multinomial sampler's 12 + 2 and {DIM_NEWTON_ITERS} Newton "
+        f"transition(s); dim-group collectives per rank "
+        f"{[sum(o['dim_b_coll'].values()) for o in outs]}; on {CARD}")
+
+    # 10g(b): 8b's iso_std arm on the whole mesh
+    for a, b in ((0, 1), (2, 3)):
+        if not torch.equal(outs[a]["iso"]["diag_local"],
+                           outs[b]["iso"]["diag_local"]):
+            raise AssertionError(f"10g(b): ranks {a} and {b} (one dim "
+                                 "group) hold different diagnostics")
+    iso = outs[0]["iso"]
+    draws, diag = iso["draws"][1:].double(), iso["diag"]
+    if tuple(draws.shape) != (DIM_ISO_ITERS, ISO_CHAINS, 3) or \
+            not bool(torch.isfinite(draws).all()):
+        raise AssertionError(f"10g(b): bad draws {tuple(draws.shape)}")
+    iso_wall = max(o["iso"]["wall"] for o in outs)
+    log(f"phase 10g(b) generic NUTS on a (2, 2) mesh, config 5 iso_std: "
+        f"D={ISO_DIM} C={ISO_CHAINS} m={ISO_M} f32, blocks {iso['block']} "
+        f"(chains x columns) per rank, {DIM_ISO_ITERS} iteration(s) in "
+        f"{iso_wall:.2f} s (slowest rank) = {iso_wall / DIM_ISO_ITERS:.3f} s "
+        f"per iteration (8b, one process: {iso_s_per_it:.3f} s per "
+        f"iteration); dim-group collectives per iteration per rank "
+        f"{[o['iso']['coll'] / DIM_ISO_ITERS for o in outs]}; "
+        f"{float(diag[..., 7].double().sum()):.0f} grad evals; NUTtype "
+        f"counts {_counts(diag[..., 6])}; orbit doublings mean "
+        f"{float(diag[..., 0].double().mean()):.2f}; radius mean "
+        f"{float(draws[..., 2].mean()):.1f} against D = {ISO_DIM}; "
+        f"round-kernel launches per rank {[o['launches'] for o in outs]}; "
+        f"on {CARD}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
-"""The scan engine on a 2 x 2 ``(chains, dim)`` mesh of gloo ranks, and
-the streaming engine, generic NUTS and the multinomial sampler with
-their chains split over two ranks, against JAX's one-device runs: the
-port of ``test_mesh2_dim_sharded_matches_single_device``
+"""The scan engine, the streaming engine, generic NUTS and the
+multinomial sampler on a 2 x 2 ``(chains, dim)`` mesh of gloo ranks, and
+the last three with their chains split over two ranks, against JAX's
+one-device runs: the port of
+``test_mesh2_dim_sharded_matches_single_device``
 (``tests/test_parallel_and_diagnostics.py``) at JAX's sizes and horizon,
-funnel(11) split 6 + 5 through every scan-engine integrator, a diagonal
-metric, a target on the gather route, a target's own generated
-quantities, pooled warmup over both chain rows, the errors of what a dim
-split does not take, and the threefry column window.
+funnel(11) split 6 + 5 through every scan-engine integrator and the
+implicit midpoint's Newton mode, a diagonal metric, a target on the
+gather route, a target's own generated quantities, pooled warmup over
+both chain rows, the streaming engine under both draws, generic NUTS
+with both step kernels, the multinomial sampler with and without WASPS
+on a ``[D]`` scale, the one engine that raises on the mesh, and the
+threefry column window.
 
 A dim split sums over D in another order (each rank its block, then an
 all-reduce), so runs without adaptation are held to ``EXACT`` and runs
@@ -35,8 +39,12 @@ RANK_TIMEOUT = 300.0
 INT_COLS = [0, 1, 4, 5, 6, 7, 8, 9, 12, 13, 19, 20, 21, 22]
 FLOAT_COLS = [i for i in range(24) if i not in INT_COLS]
 # every scan-engine integrator; the implicit midpoint runs its
-# fixed-point solve (its Newton mode raises under a dim split)
+# fixed-point solve here and its Newton mode in the "newton" cases
 INTEGRATORS = sorted(tw.ops.INTEGRATORS)
+# the generic-NUTS diagnostics that are integers (DIAG_COLS)
+GENERIC_INT_COLS = [0, 1, 2, 3, 4, 5, 6, 7, 9, 10]
+# the multinomial diagnostics that are integers (DIAG_COLS)
+MULTI_INT_COLS = [1, 2, 3, 4, 6, 9]
 
 _rng = np.random.default_rng(21)
 JAX_CASE = dict(target=("std_gauss", 8), q0=np.asarray(jax.random.normal(
@@ -58,6 +66,13 @@ SCAN = {
     "smile": dict(FIXED, target=("smile",), q0=_rng.normal(size=(8, 2))),
     "radius": dict(FIXED, target=("std_gauss_radius", 7), orbit=True,
                    q0=_rng.normal(size=(8, 7))),
+    # a dense Hessian per chain and fixed-point iteration: 2 transitions
+    **{name: dict(FIXED, target=("funnel", 11), newton=True, num_iter=2,
+                  integrator="adapt_implicit_midpoint_d",
+                  q0=0.5 * np.random.default_rng(3).normal(size=(8, 11)),
+                  **extra)
+       for name, extra in (("newton", {}), ("newton_inv_mass", dict(
+           inv_mass=np.linspace(0.6, 1.5, 11))))},
 }
 PART_B = {
     **{f"streaming_{r}": dict(kind="streaming", rng=r, target=("funnel", 6),
@@ -75,13 +90,43 @@ PART_B = {
 }
 
 
+# the engines besides the scan engine on the 2 x 2 mesh: 8 chains, each
+# rank 4 chains and its columns (funnel(11) 6 + 5, std_gauss(5) 3 + 2,
+# smile 1 + 1)
+_drng = np.random.default_rng(34)
+DIM_B = {
+    **{f"streaming_{r}": dict(kind="streaming", rng=r, target=("funnel", 11),
+                              q0=0.5 * _drng.normal(size=(8, 11)),
+                              h=np.linspace(0.25, 0.6, 8),
+                              delta=np.linspace(0.08, 0.3, 8), seed=3, m=5,
+                              num_iter=6)
+       for r in ("hash", "global")},
+    **{f"generic_{k}": dict(kind="generic", kernel=k, target=("std_gauss", 5),
+                            q0=0.8 * _drng.normal(size=(8, 5)), h=0.5,
+                            delta=0.1, seed=11, m=5, num_iter=8)
+       for k in ("isokinetic", "hmc")},
+    "generic_smile": dict(kind="generic", kernel="isokinetic",
+                          target=("smile",), q0=_drng.normal(size=(8, 2)),
+                          h=0.4, delta=0.1, seed=5, m=5, num_iter=8),
+    **{f"multinomial_{w}": dict(kind="multinomial", target=("std_gauss", 5),
+                                wasps=w == "wasps",
+                                q0=0.8 * _drng.normal(size=(8, 5)), h=0.6,
+                                delta=0.2, seed=17, l_orbit=12, num_iter=14,
+                                warmup_iter=12,
+                                scale=np.linspace(0.7, 1.3, 5),
+                                center=np.linspace(-0.2, 0.2, 5))
+       for w in ("wasps", "plain")},
+}
+
+
 @pytest.fixture(scope="module")
 def ranks():
     """One run of ``torch_rank_jobs.dim_split`` on a 2 x 2 gloo mesh,
     shared by the tests of this module (rank r is mesh coordinate
     ``(r // 2, r % 2)``)."""
-    return parallel.run_ranks(torch_rank_jobs.dim_split, 4, (SCAN, PART_B),
-                              timeout=RANK_TIMEOUT, device="cpu")
+    return parallel.run_ranks(torch_rank_jobs.dim_split, 4,
+                              (SCAN, PART_B, DIM_B), timeout=RANK_TIMEOUT,
+                              device="cpu")
 
 
 def _jax_target(spec):
@@ -100,7 +145,9 @@ def _jax_scan(case):
         target=_jax_target(case["target"]),
         cfg=wt.WalnutsConfig(m=case["m"], integrator=case["integrator"],
                              use_inv_mass=inv_mass is not None,
-                             record_orbit_stats=orbit),
+                             record_orbit_stats=orbit,
+                             igr=wt.ops.IntegratorConfig(
+                                 fp_newton=case.get("newton", False))),
         warmup=wt.WarmupConfig(warmup_iter=case["warmup_iter"],
                                pooled=case["pooled"]),
         num_iter=case["num_iter"], h0=case["h0"], delta0=case["delta0"],
@@ -179,33 +226,42 @@ def test_metric_gather_route_and_own_generated(ranks, case):
                 assert_parity(np.asarray(w), g, EXACT, name)
 
 
+@pytest.mark.parametrize("case", ["newton", "newton_inv_mass"])
+def test_newton_mode_solves_whole_rows_on_the_dim_split(ranks, case):
+    """The implicit midpoint's Newton mode on funnel(11) split 6 + 5,
+    with and without a ``[D]`` inverse mass: each rank gathers the
+    chains' whole rows and solves the whole system, within ``EXACT`` of
+    JAX's one device."""
+    want = _jax_scan(SCAN[case])
+    for rank in ranks:
+        _assert_scan(want, rank["scan"][case], EXACT)
+
+
 def test_ranks_of_a_dim_group_hold_the_same_rows(ranks):
     """Every per-chain value comes from dim-group collectives, so the two
     ranks that share a chain block hold the same diagnostics rows, bit
-    for bit (a flag computed on one rank's columns alone would have
-    deadlocked the run)."""
+    for bit, in every engine (a flag computed on one rank's columns
+    alone would have deadlocked the run)."""
     for r0, r1 in ((0, 1), (2, 3)):
         a, b = ranks[r0], ranks[r1]
         assert a["coords"] == (r0 // 2, 0) and b["coords"] == (r0 // 2, 1)
         for name in SCAN:
             assert np.array_equal(a["scan"][name]["diag_local"],
                                   b["scan"][name]["diag_local"]), name
+        for name in DIM_B:
+            assert np.array_equal(a["dim_b"][name][1],
+                                  b["dim_b"][name][1]), name
 
 
 def test_what_a_dim_split_does_not_take_raises(ranks):
-    """The Newton mode (a dense Hessian per chain), the three engines
-    that split chains only and the fused engine raise on the 2-D mesh,
-    each naming its ROADMAP item."""
+    """Of the engines, only the fused one raises on the 2-D mesh, naming
+    its ROADMAP item; the streaming engine, generic NUTS and the
+    multinomial sampler run."""
     for rank in ranks:
         err = rank["errors"]
-        assert set(err) == {"newton", "streaming", "generic", "multinomial",
-                            "fused"}
-        assert "Newton mode under a dim split" in err["newton"]
-        for name in ("streaming", "generic", "multinomial"):
-            assert "streaming and isokinetic engines under a dim split" in \
-                err[name]
+        assert set(err) == {"fused"}
         assert "fused engine and the CUDA round kernel" in err["fused"]
-        assert all("ROADMAP" in e for e in err.values())
+        assert "ROADMAP queue 1 item 4" in err["fused"]
 
 
 def _jax_part_b(case):
@@ -213,6 +269,8 @@ def _jax_part_b(case):
     target = _jax_target(case["target"])
     key = jax.random.PRNGKey(case["seed"])
     sp = wt.sampler
+    kernel = sp.HMCKernel() if case.get("kernel") == "hmc" \
+        else sp.IsokineticKernel()
     if case["kind"] == "streaming":
         return sp.run_walnuts_streaming(
             key, q0, jnp.asarray(case["h"]), jnp.asarray(case["delta"]),
@@ -220,14 +278,17 @@ def _jax_part_b(case):
             num_iter=case["num_iter"], rng=case["rng"])
     if case["kind"] == "generic":
         return sp.run_generic_nuts(
-            key, q0, target=target, kernel=sp.IsokineticKernel(),
+            key, q0, target=target, kernel=kernel,
             h_macro=case["h"], delta=case["delta"],
             num_iter=case["num_iter"], m=case["m"])
     s, d, (h, dl) = sp.run_multinomial(
-        key, q0, target=target, kernel=sp.IsokineticKernel(),
-        cfg=sp.MultinomialConfig(l_orbit=case["l_orbit"]), h0=case["h"],
-        delta0=case["delta"], num_iter=case["num_iter"],
-        warmup_iter=case["warmup_iter"])
+        key, q0, target=target, kernel=kernel,
+        cfg=sp.MultinomialConfig(l_orbit=case["l_orbit"],
+                                 wasps=case.get("wasps", True)),
+        h0=case["h"], delta0=case["delta"], num_iter=case["num_iter"],
+        warmup_iter=case["warmup_iter"],
+        scale=jnp.asarray(case.get("scale", 1.0)),
+        center=jnp.asarray(case.get("center", 0.0)))
     return s, d, h, dl
 
 
@@ -243,6 +304,27 @@ def test_chain_split_streaming_and_isokinetic_match_jax(ranks, name):
         assert len(got) == len(want)
         for i, (w, g) in enumerate(zip(want, got)):
             assert_parity(w, g, EXACT, f"{name} output {i}")
+
+
+@pytest.mark.parametrize("name", sorted(DIM_B))
+def test_dim_split_streaming_and_isokinetic_match_jax(ranks, name):
+    """Each rank its chains and its columns, every sum over D reduced
+    over the dim group: the joined outputs against JAX's one device,
+    integer diagnostics equal, floats within ``EXACT`` (the multinomial
+    sampler, which adapts each chain through 12 warmup iterations,
+    within ``ADAPTIVE``)."""
+    case = DIM_B[name]
+    want = [np.asarray(x) for x in _jax_part_b(case)]
+    contract = ADAPTIVE if case.get("warmup_iter") else EXACT
+    int_cols = {"streaming": INT_COLS, "generic": GENERIC_INT_COLS,
+                "multinomial": MULTI_INT_COLS}[case["kind"]]
+    for rank in ranks:
+        got = rank["dim_b"][name][0]
+        assert len(got) == len(want)
+        np.testing.assert_array_equal(got[1][..., int_cols],
+                                      want[1][..., int_cols])
+        for i, (w, g) in enumerate(zip(want, got)):
+            assert_parity(w, g, contract, f"{name} output {i}")
 
 
 # draws whose last axis a rank may hold a window of: the momentum (C, D)

@@ -163,59 +163,66 @@ def _dim_scan(case, mesh):
 
 
 def _part_b(case, mesh):
-    """One chain-split run of the streaming engine, generic NUTS or the
-    multinomial sampler on this rank's chains of a 1-D mesh, joined."""
+    """One run of the streaming engine, generic NUTS or the multinomial
+    sampler on this rank's block of ``mesh`` (its chains of a 1-D mesh,
+    its chains and columns of a 2-D one), joined over both axes:
+    ``(outputs, this rank's own diagnostics)``."""
     kind = case["kind"]
     sp = tw.sampler
+    target = _dim_target(case["target"])
+    kernel = sp.HMCKernel() if case.get("kernel") == "hmc" \
+        else sp.IsokineticKernel()
+
+    def cols(x, chain_dim=1):
+        return _np(gather_blocks(x, mesh, chain_dim))
+
+    def rows(x, chain_dim=1):
+        return _np(gather_blocks(x, mesh, chain_dim, cols=False))
+
     if kind == "streaming":
-        q, h, dl = parallel.shard_chains(
+        q, h, dl = parallel.shard_chains_dim(
             (case["q0"], case["h"], case["delta"]), mesh)
-        out = sp.run_walnuts_streaming(
-            case["seed"], q, h, dl, target=_dim_target(case["target"]),
+        s, d, qf = sp.run_walnuts_streaming(
+            case["seed"], q, h, dl, target=target,
             cfg=tw.WalnutsConfig(m=case["m"]), num_iter=case["num_iter"],
             rng=case["rng"], device="cpu", mesh=mesh)
-        return [_np(gather_chains(out[0], mesh)),
-                _np(gather_chains(out[1], mesh)),
-                _np(parallel.gather_rows(out[2], mesh))]
-    q = parallel.shard_chains(case["q0"], mesh)
+        return [cols(s), rows(d), cols(qf, 0)], _np(d)
+    q = parallel.shard_chains_dim(case["q0"], mesh)
     if kind == "generic":
-        out = sp.run_generic_nuts(
-            case["seed"], q, target=_dim_target(case["target"]),
-            kernel=sp.IsokineticKernel(), h_macro=case["h"],
-            delta=case["delta"], num_iter=case["num_iter"], m=case["m"],
-            device="cpu", mesh=mesh)
-        return [_np(gather_chains(x, mesh)) for x in out]
+        s, d = sp.run_generic_nuts(
+            case["seed"], q, target=target, kernel=kernel,
+            h_macro=case["h"], delta=case["delta"],
+            num_iter=case["num_iter"], m=case["m"], device="cpu", mesh=mesh)
+        return [cols(s), rows(d)], _np(d)
     s, d, (h, dl) = sp.run_multinomial(
-        case["seed"], q, target=_dim_target(case["target"]),
-        kernel=sp.IsokineticKernel(),
-        cfg=sp.MultinomialConfig(l_orbit=case["l_orbit"]), h0=case["h"],
-        delta0=case["delta"], num_iter=case["num_iter"],
-        warmup_iter=case["warmup_iter"], device="cpu", mesh=mesh)
-    return [_np(gather_chains(s, mesh)), _np(gather_chains(d, mesh)),
-            _np(parallel.gather_rows(h, mesh)),
-            _np(parallel.gather_rows(dl, mesh))]
+        case["seed"], q, target=target, kernel=kernel,
+        cfg=sp.MultinomialConfig(l_orbit=case["l_orbit"],
+                                 wasps=case.get("wasps", True)),
+        h0=case["h"], delta0=case["delta"], num_iter=case["num_iter"],
+        warmup_iter=case["warmup_iter"], scale=case.get("scale", 1.0),
+        center=case.get("center", 0.0), device="cpu", mesh=mesh)
+    return [cols(s), rows(d), rows(h, 0), rows(dl, 0)], _np(d)
 
 
-def dim_split(scan_cases, part_b_cases):
+def dim_split(scan_cases, part_b_cases, dim_b_cases):
     """Every case of the dim-split tests on a 2 x 2 mesh: the scan
-    engine's cases on the rank's (chain rows, column block), the Part B
-    engines' on the rank's chains of the mesh's chains axis (two ranks;
-    each column of the mesh runs them alike), and the errors of what a
-    dim split does not take."""
+    engine's cases and the other engines' dim cases on the rank's (chain
+    rows, column block), the Part B cases on the rank's chains of the
+    mesh's chains axis (two ranks; each column of the mesh runs them
+    alike), and which engines raise on the 2-D mesh."""
     torch.set_num_threads(1)
     mesh = parallel.make_mesh2(2, 2)
     out = {"block": parallel.dim_block(mesh, 11),
            "scan": {k: _dim_scan(c, mesh) for k, c in scan_cases.items()},
-           "part_b": {k: _part_b(c, mesh["chains"])
-                      for k, c in part_b_cases.items()}}
+           "part_b": {k: _part_b(c, mesh["chains"])[0]
+                      for k, c in part_b_cases.items()},
+           "dim_b": {k: _part_b(c, mesh) for k, c in dim_b_cases.items()}}
     errors = {}
-    newton = dict(scan_cases["funnel_adapt_implicit_midpoint_d"],
-                  newton=True, num_iter=1)
-    q = np.zeros((8, 5))
+    q, h = parallel.shard_chains_dim((np.zeros((8, 5)), np.full(8, 0.3)),
+                                     mesh)
     for name, call in (
-            ("newton", lambda: _dim_scan(newton, mesh)),
             ("streaming", lambda: tw.sampler.run_walnuts_streaming(
-                1, q, np.full(8, 0.3), np.full(8, 0.3),
+                1, q, h, h,
                 target=tw.targets.std_gauss(5), cfg=tw.WalnutsConfig(m=3),
                 num_iter=1, device="cpu", mesh=mesh)),
             ("generic", lambda: tw.sampler.run_generic_nuts(

@@ -113,7 +113,9 @@ def make_target(arm, dim, dtype=torch.float32):
     ``[q_0 / sd_0, q_last / sd_last, sum(q^2 / var)]`` (``highdim_
     variants.py:54-86``): everything the moment gates need, at storage
     cost 3 instead of D.  The variances are moved to a position's
-    device once per device."""
+    device once per device.  The target is separable: under a dim split
+    it takes the rank's columns, with the log density's sum over the
+    dim group (``Target``'s block route)."""
     var_cpu = variances(arm, dim, dtype)
     consts = {}
 
@@ -128,11 +130,19 @@ def make_target(arm, dim, dtype=torch.float32):
         def logp_grad(q):
             return -0.5 * torch.sum(q * q, dim=-1), -q
 
+        def block_logp_grad(q, split):
+            return -0.5 * parallel.dim_sum(torch.sum(q * q, dim=-1)), -q
+
         name = f"std_gauss_{dim}"
     else:
         def logp_grad(q):
             var = const(q)[0]
             return -0.5 * torch.sum(q * q / var, dim=-1), -q / var
+
+        def block_logp_grad(q, split):
+            var = const(q)[0][split.d0:split.d1]
+            return (-0.5 * parallel.dim_sum(torch.sum(q * q / var, dim=-1)),
+                    -q / var)
 
         name = f"ill_gauss_{dim}"
 
@@ -142,7 +152,8 @@ def make_target(arm, dim, dtype=torch.float32):
                             torch.sum(qn * qn, dim=-1)], dim=-1)
 
     return Target(lambda q: logp_grad(q)[0], dim, name=name,
-                  generated=generated, logp_grad=logp_grad)
+                  generated=generated, logp_grad=logp_grad,
+                  block_logp_grad=block_logp_grad)
 
 
 def arm_key(arm):

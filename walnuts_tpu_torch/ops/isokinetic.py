@@ -19,6 +19,12 @@ host sync each), as :func:`..ops.leapfrog.masked_multistep` does.
 Norms are ``sqrt(sum(x * x))``, as ``jnp.linalg.norm`` computes them.
 The step functions take the JAX version's unused ``key`` as their first
 argument, so that the step kernels can pass one.
+
+Inside a dim split (:func:`..parallel.mesh.dim_split`) the batch holds
+this rank's columns: every norm and dot over D is the dim group's sum,
+the flow error's maximum the group's maximum, a draw over D the rank's
+window of the whole draw, and the dimension in the kick's ``d - 1`` and
+the partial refresh's ``sqrt(d)`` is the whole D.
 """
 
 from typing import NamedTuple
@@ -26,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import col_window, dim_max, dim_sum
 from ..utils import threefry
 from ..utils.constants import ISOKINETIC_DELTA_THRESH, LOG_ZERO
 
@@ -63,7 +70,7 @@ class IsoMultistepResult(NamedTuple):
 
 
 def _norm(x, keepdim=False):
-    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim))
+    return torch.sqrt(dim_sum(torch.sum(x * x, dim=-1, keepdim=keepdim)))
 
 
 def mcstate_from_numpy(d, device="cpu") -> MCState:
@@ -80,20 +87,27 @@ def mcstate_to_numpy(st: MCState) -> dict:
 
 
 def draw_window(shape, block=None):
-    """``(global shape, rows)`` of a draw for a ``shape`` batch that is
-    rows ``c0 .. c0+C-1`` of ``C_total`` chains (``block = (c0,
-    C_total)``; ``(shape, None)`` without one)."""
-    if block is None:
-        return tuple(shape), None
-    c0, C_total = block
-    return (C_total,) + tuple(shape[1:]), (c0, c0 + shape[0])
+    """``(global shape, rows, cols)`` of a draw for a ``shape`` batch
+    that is rows ``c0 .. c0+C-1`` of ``C_total`` chains (``block = (c0,
+    C_total)``; ``rows`` None without one) and, for a ``[C, ..., D]``
+    batch inside a dim split, the rank's columns ``cols`` of the whole
+    width (:func:`..parallel.mesh.col_window`; None without one)."""
+    shape, rows, cols = tuple(shape), None, None
+    if block is not None:
+        c0, C_total = block
+        shape, rows = (C_total,) + shape[1:], (c0, c0 + shape[0])
+    if len(shape) >= 2:
+        D, cols = col_window(shape[-1])
+        shape = shape[:-1] + (D,)
+    return shape, rows, cols
 
 
-def refresh_u(key, shape, dtype=torch.float32, rows=None):
+def refresh_u(key, shape, dtype=torch.float32, rows=None, cols=None):
     """Full momentum refresh from the threefry key ``key``: ``u``
-    uniform on the unit sphere (``rows=(r0, r1)``: rows ``r0 .. r1`` of
-    ``shape``'s leading axis alone, as in :func:`..utils.threefry.normal`)."""
-    p = threefry.normal(key, shape, dtype, rows)
+    uniform on the unit sphere (``rows=(r0, r1)`` and ``cols=(c0, c1)``:
+    that window of ``shape``'s leading and last axes alone, as in
+    :func:`..utils.threefry.normal`)."""
+    p = threefry.normal(key, shape, dtype, rows, cols)
     return p / _norm(p, keepdim=True)
 
 
@@ -101,9 +115,9 @@ def partial_refresh_u(key, u, c1, block=None):
     """Partial refresh mixing the old direction with a fresh normal
     draw (``microCanonical.py:34-38``); ``block = (c0, C_total)`` when
     ``u`` holds rows ``c0 ..`` of a batch of ``C_total``."""
-    shape, rows = draw_window(u.shape, block)
-    z = threefry.normal(key, shape, u.dtype, rows)
-    z = z / torch.sqrt(torch.tensor(u.shape[-1], dtype=u.dtype,
+    shape, rows, cols = draw_window(u.shape, block)
+    z = threefry.normal(key, shape, u.dtype, rows, cols)
+    z = z / torch.sqrt(torch.tensor(shape[-1], dtype=u.dtype,
                                     device=u.device))
     t = c1 * u + float(np.sqrt(1.0 - c1 ** 2)) * z
     return t / _norm(t, keepdim=True)
@@ -123,7 +137,7 @@ def _b_kick(u, g, h_half, d):
     ok = delta <= ISOKINETIC_DELTA_THRESH
     delta = torch.clamp(delta, 0.0, ISOKINETIC_DELTA_THRESH)
     e = g / torch.clamp(gnorm, min=1e-300)[:, None]
-    ep = torch.sum(e * u, dim=-1)
+    ep = dim_sum(torch.sum(e * u, dim=-1))
     ch, sh = torch.cosh(delta), torch.sinh(delta)
     z = ch + ep * sh
     ok = ok & (z >= 1.0e-14)
@@ -147,7 +161,7 @@ def _bab(target, s: MCState, hh, d):
 
 
 def _iso_loop(target, state: MCState, h_micro, nsteps, with_err):
-    d = float(state.q.shape[-1])
+    d = float(col_window(state.q.shape[-1])[0])
     s = state
     C = state.lp.shape[0]
     dtype, dev = state.q.dtype, state.q.device
@@ -162,7 +176,7 @@ def _iso_loop(target, state: MCState, h_micro, nsteps, with_err):
         h1 = hh[:, None]
         if with_err:
             # forward Euler references (``microCanonical.py:148-152``)
-            gu = torch.sum(s.g * s.u, dim=-1)[:, None]
+            gu = dim_sum(torch.sum(s.g * s.u, dim=-1))[:, None]
             eul_q = s.q + h1 * s.u
             eul_u = s.u + (h1 / (d - 1.0)) * (s.g - gu * s.u)
             eul_u = eul_u / _norm(eul_u, keepdim=True)
@@ -173,7 +187,7 @@ def _iso_loop(target, state: MCState, h_micro, nsteps, with_err):
             err_qf = torch.abs(q2 - eul_q)
             err_uf = torch.abs(u2 - eul_u)
             err_qb = torch.abs(s.q - (q2 - h1 * u2))
-            gu2 = torch.sum(g2 * u2, dim=-1)[:, None]
+            gu2 = dim_sum(torch.sum(g2 * u2, dim=-1))[:, None]
             uback = -u2 + (h1 / (d - 1.0)) * (g2 - gu2 * u2)
             uback = uback / _norm(uback, keepdim=True)
             err_ub = torch.abs(-s.u - uback)
@@ -188,7 +202,8 @@ def _iso_loop(target, state: MCState, h_micro, nsteps, with_err):
     res = IsoMultistepResult(s, w, all_ok, nev)
     if not with_err:
         return res
-    err = torch.maximum(torch.amax(eq, dim=-1), torch.amax(eu, dim=-1))
+    err = dim_max(torch.maximum(torch.amax(eq, dim=-1),
+                                torch.amax(eu, dim=-1)))
     return res, err
 
 

@@ -9,14 +9,17 @@ their values are kept by ``torch.where``, never skipped.  JAX's
 largest step count once, the implicit-midpoint solve checks ``any(~done)``
 once per iteration (one host sync each).  Inside a dim split
 (:mod:`..parallel.mesh`) the per-chain errors and magnitudes are maxima
-over the dim group, so the ranks that share a chain stop together.
+over the dim group, so the ranks that share a chain stop together, and
+the implicit midpoint's Newton mode solves each chain's whole system on
+every rank of the group (:func:`implicit_midpoint_step`).
 """
 
 from typing import NamedTuple
 
 import torch
 
-from ..parallel.mesh import NEWTON_DIM_SPLIT_ITEM, current_dim_split, dim_max
+from ..parallel.mesh import (current_dim_split, dim_gather, dim_max,
+                             dim_split)
 from .hamiltonian import hamiltonian
 
 # Host syncs made by the implicit-midpoint solve's loop test (``bool(
@@ -112,14 +115,9 @@ def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
     chain whose step fails returns ``ok=False`` and a ``-inf`` density.
     The tolerance is floored at ``32 eps max(max|q|, 1)`` of the working
     dtype, so float32 chains can converge.  Newton mode solves with the
-    batched target Hessian (a dense ``[D, D]`` per chain, which a dim
-    split does not take: it raises, naming ``NEWTON_DIM_SPLIT_ITEM``).
+    batched target Hessian, a dense ``[D, D]`` per chain
+    (:func:`_newton_update`).
     """
-    if newton and current_dim_split() is not None:
-        raise NotImplementedError(
-            "the implicit midpoint's Newton mode solves with each chain's "
-            f"whole Hessian; under a dim split it waits for "
-            f"{NEWTON_DIM_SPLIT_ITEM}")
     h = hh[:, None]
     qq, vv, gg = state.q, state.v, state.g
     scale = 1.0 if inv_mass is None else inv_mass
@@ -139,12 +137,8 @@ def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
         mid = 0.5 * (qt + qq)
         gmp = target.logp_grad(mid)[1]
         if newton:
-            hess = target.hessian_batched(mid)
-            eye = torch.eye(qq.shape[-1], dtype=qt.dtype, device=qt.device)
-            hh2 = (0.25 * h * h)[..., None] * (
-                hess if inv_mass is None else inv_mass[:, None] * hess) - eye
             resid = base + 0.5 * h * h * (scale * gmp) - qt
-            qt_new = qt - torch.linalg.solve(hh2, resid[..., None])[..., 0]
+            qt_new = qt - _newton_update(target, mid, resid, h, inv_mass)
         else:
             qt_new = base + 0.5 * h * h * (scale * gmp)
         err = dim_max(torch.amax(torch.abs(qt_new - qt), dim=-1))
@@ -168,6 +162,31 @@ def implicit_midpoint_step(target, state: PhasePoint, hh, inv_mass=None, *,
     lp2, g2 = target.logp_grad(q2)
     lp2 = torch.where(conv, lp2, -torch.inf)
     return PhasePoint(q2, v2, g2, lp2), torch.zeros_like(hh), conv, nev + 2
+
+
+def _newton_update(target, mid, resid, h, inv_mass):
+    """The Newton step ``(h^2/4 M^{-1} H(mid) - I)^{-1} resid`` of each
+    chain.  Under a dim split every rank of the group gathers the whole
+    ``mid`` and ``resid`` rows (and ``inv_mass``, in the same gather),
+    builds and solves each chain's whole system as one process does, and
+    keeps its columns of the update: every input of the solve has one
+    process's bits."""
+    split = current_dim_split()
+    if split is not None:
+        parts = [mid, resid]
+        if inv_mass is not None:
+            parts.append(inv_mass.expand_as(mid))
+        parts = dim_gather(torch.stack(parts)).unbind(0)
+        mid, resid = parts[:2]
+        if inv_mass is not None:
+            inv_mass = parts[2][0]
+    with dim_split(None, mid.shape[-1]):      # whole rows from here on
+        hess = target.hessian_batched(mid)
+    eye = torch.eye(mid.shape[-1], dtype=mid.dtype, device=mid.device)
+    hh2 = (0.25 * h * h)[..., None] * (
+        hess if inv_mass is None else inv_mass[:, None] * hess) - eye
+    upd = torch.linalg.solve(hh2, resid[..., None])[..., 0]
+    return upd if split is None else upd[..., split.d0:split.d1]
 
 
 STEP_FNS = {

@@ -18,19 +18,21 @@ On a 1-D mesh (chains over ranks) it
   median (an all-gather in rank order) and the fused engine's stop test
   (an all-reduce).
 
-On a 2-D ``(chains, dim)`` mesh (:func:`make_mesh2`; the scan engine
-only) a rank holds a block of chains and a window of columns
+On a 2-D ``(chains, dim)`` mesh (:func:`make_mesh2`; every engine but
+the fused one) a rank holds a block of chains and a window of columns
 (:func:`dim_block`: blocks of ``ceil(D / n_dim)`` columns, the last one
 shorter).  The chain steps above run over the ``chains`` axis; besides,
 every sum over D becomes the rank's partial sum all-reduced over the
 rank's dim group (the ranks that share its chains), the work GSPMD's
-``psum`` does in JAX.  Inside :func:`dim_split` the collectives
-:func:`dim_sum`, :func:`dim_max`, :func:`dim_any` and :func:`dim_all`
-reduce over that group (outside it, or on a mesh without a dim split,
-each returns its input); the ops, the targets and the scan transition
-call them at every reduction over D.  Every per-chain flag that a host
-loop reads comes from them, so the ranks of a dim group take the same
-branches and make the same sequence of collectives.
+``psum`` does in JAX, and every draw over D is the rank's window of the
+whole draw (:func:`col_window`).  Inside :func:`dim_split` the
+collectives :func:`dim_sum`, :func:`dim_max`, :func:`dim_any`,
+:func:`dim_all` and :func:`dim_gather` reduce over that group (outside
+it, or on a mesh without a dim split, each returns its input); the ops,
+the targets, the step kernels and the engines call them at every
+reduction over D.  Every per-chain flag that a host loop reads comes
+from them, so the ranks of a dim group take the same branches and make
+the same sequence of collectives.
 
 A mesh of one rank, or none, takes exactly the single-process path.
 The backend follows where the ranks keep their tensors
@@ -50,14 +52,10 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.tree import tree_map
 
-# The engines that take a 1-D mesh only raise on a 2-D one, naming the
-# ROADMAP item that their dim split waits for.
-FUSED_DIM_SPLIT_ITEM = ("ROADMAP queue 1, the fused engine and the CUDA "
-                        "round kernel under a dim split")
-STREAM_DIM_SPLIT_ITEM = ("ROADMAP queue 1, the streaming and isokinetic "
-                         "engines under a dim split")
-NEWTON_DIM_SPLIT_ITEM = ("ROADMAP queue 1, the implicit midpoint's Newton "
-                         "mode under a dim split")
+# The engine that takes a 1-D mesh only raises on a 2-D one, naming the
+# ROADMAP item that its dim split waits for.
+FUSED_DIM_SPLIT_ITEM = ("ROADMAP queue 1 item 4, the fused engine and the "
+                        "CUDA round kernel under a dim split")
 
 
 def rank_layout(device, num_processes: int, process_id: int):
@@ -135,8 +133,8 @@ def make_mesh2(n_chain: int, n_dim: int,
                axes=("chains", "dim")) -> DeviceMesh:
     """A 2-D ``(chains, dim)`` mesh: chains split over the mesh's first
     axis, the parameter dimension over its second (``axes`` names
-    them).  Only the scan engine ``run_walnuts`` takes one; the other
-    engines raise on it."""
+    them).  Every engine but the fused one takes it; the fused engine
+    raises on it."""
     world = _world()
     need = n_chain * n_dim
     if need > world:
@@ -359,6 +357,17 @@ def dim_split(mesh: Optional[DeviceMesh], D: int):
 def current_dim_split() -> Optional[DimSplit]:
     """The :class:`DimSplit` of the enclosing :func:`dim_split`, or None."""
     return _ACTIVE.get()
+
+
+def col_window(width: int):
+    """``(D, cols)`` for a tensor of ``width`` columns: ``(width, None)``
+    without a dim split; inside one, the whole width ``D`` and this
+    rank's columns ``(d0, d1)`` of it, the ``cols=`` of a threefry draw
+    over D."""
+    active = _ACTIVE.get()
+    if active is None:
+        return int(width), None
+    return active.D, (active.d0, active.d1)
 
 
 def _dim_reduce(x, op):

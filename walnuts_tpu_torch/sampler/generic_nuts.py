@@ -27,9 +27,13 @@ directions and orbit keys; per schedule step ``t``, ``split(fold_in(
 k_orbit, t), 5)`` gives the (unused) step keys, the two selection
 uniforms and the acceptance uniform.  All steps' uniforms are drawn in
 one batched pass before the loop, with the per-step draws' bits.  With
-the chains split over the ranks of a 1-D mesh every draw is the rank's
-rows of the whole batch's (``chain_block``), and nothing is pooled
-across chains, so each rank runs its chains with no collective.
+the chains split over the ranks of a mesh every draw is the rank's rows
+of the whole batch's (``chain_block``), and nothing is pooled across
+chains, so the chain ranks need no collective.  On a ``(chains, dim)``
+mesh the transition runs inside :func:`..parallel.mesh.dim_split`: the
+momentum is the rank's columns of the whole draw, and every energy,
+U-turn dot and step-kernel norm is its dim group's sum, so each flag
+the host loop reads is the same on every rank of the group.
 
 Diagnostics columns (one row per chain per iteration): ``DIAG_COLS``.
 """
@@ -38,7 +42,7 @@ import torch
 
 from ..ops.hamiltonian import uturn
 from ..ops.isokinetic import MCState, draw_window, where_state
-from ..parallel.mesh import STREAM_DIM_SPLIT_ITEM, chain_block, chains_only
+from ..parallel.mesh import chain_block, chain_ranks, dim_split
 from ..utils import threefry
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .plans import build_schedule
@@ -71,7 +75,7 @@ def generic_nuts_transition(key, state: MCState, h_macro, delta, *,
     sched = build_schedule(m + 1)
     T, S = sched.n_steps, sched.capacity
 
-    (Cg,), rows = draw_window((C,), chain_block)
+    (Cg,), rows, _ = draw_window((C,), chain_block)
     k_mom, k_dirs, k_orbit = threefry.split(key, 3)
     state = kernel.refresh(k_mom, state, chain_block)
     lwt0 = -kernel.ham(state)
@@ -255,31 +259,36 @@ def run_generic_nuts(seed, q0, *, target, kernel, h_macro, delta,
 
     ``mesh``: a 1-D mesh (:func:`..parallel.make_mesh`): ``q0`` is this
     rank's block of chains (:func:`..parallel.shard_chains`) and the
-    outputs are its rows of the single-process run's.  A 2-D mesh
-    raises.
+    outputs are its rows of the single-process run's.  On a ``(chains,
+    dim)`` mesh (:func:`..parallel.make_mesh2`) ``q0`` is this rank's
+    (chain rows, column block) (:func:`..parallel.shard_chains_dim`) and
+    the rank returns its block, as ``run_walnuts`` does: samples of an
+    identity ``generated`` hold the rank's columns, those of a target's
+    own ``generated`` and the diagnostics whole rows
+    (:func:`..diagnostics.gather_blocks` joins both axes).
 
     Returns ``(samples [num_iter+1, C, dg], diagnostics [num_iter, C,
     12])``; row 0 of ``samples`` is the generated quantities of ``q0``.
     """
-    split = chains_only(mesh, STREAM_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     key = (seed.to(device=dev, dtype=torch.int64)
            if isinstance(seed, torch.Tensor) else threefry.PRNGKey(seed, dev))
     q0 = torch.as_tensor(q0).to(dev)
     C = q0.shape[0]
-    block = chain_block(mesh, C) if split else None
-    state = kernel.init(target, q0)
+    block = chain_block(mesh, C) if chain_ranks(mesh) > 1 else None
     h = torch.full((C,), h_macro, dtype=q0.dtype, device=dev)
     d = torch.full((C,), delta, dtype=q0.dtype, device=dev)
-    gen0 = target.generated(q0)
-    samples = torch.empty((num_iter + 1,) + tuple(gen0.shape),
-                          dtype=gen0.dtype, device=dev)
-    samples[0] = gen0
-    diags = torch.empty((num_iter, C, len(DIAG_COLS)), dtype=q0.dtype,
-                        device=dev)
-    for i in range(1, num_iter + 1):
-        state, diags[i - 1] = generic_nuts_transition(
-            threefry.fold_in(key, i), state, h, d, target=target,
-            kernel=kernel, m=m, chain_block=block)
-        samples[i] = target.generated(state.q)
+    with dim_split(mesh, target.dim):
+        state = kernel.init(target, q0)
+        gen0 = target.generated(q0)
+        samples = torch.empty((num_iter + 1,) + tuple(gen0.shape),
+                              dtype=gen0.dtype, device=dev)
+        samples[0] = gen0
+        diags = torch.empty((num_iter, C, len(DIAG_COLS)), dtype=q0.dtype,
+                            device=dev)
+        for i in range(1, num_iter + 1):
+            state, diags[i - 1] = generic_nuts_transition(
+                threefry.fold_in(key, i), state, h, d, target=target,
+                kernel=kernel, m=m, chain_block=block)
+            samples[i] = target.generated(state.q)
     return samples, diags

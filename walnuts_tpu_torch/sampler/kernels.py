@@ -11,9 +11,12 @@ A kernel bundles the state conventions of one dynamics:
 
 ``refresh`` takes a threefry key (:mod:`..utils.threefry`), so a kernel
 draws JAX's momenta, and ``block = (c0, C_total)`` for a rank's chains
-``c0 ..`` of a batch split over ranks (their rows of the whole draw).  ``step`` takes the JAX version's unused key as
-its first argument.  Every refinement search is a host loop with one
-``any`` per level, as in :mod:`..ops.isokinetic`.
+``c0 ..`` of a batch split over ranks (their rows of the whole draw).
+``step`` takes the JAX version's unused key as its first argument.
+Every refinement search is a host loop with one ``any`` per level, as
+in :mod:`..ops.isokinetic`.  Inside a dim split a refresh draws the
+rank's columns of the whole draw, and the energies and distances are
+the dim group's sums and maxima.
 """
 
 from typing import NamedTuple
@@ -25,6 +28,7 @@ from ..ops.isokinetic import (MCState, StepStats, adapt_mc_step_e,
                               fixed_mc_step, isokinetic_multistep, refresh_u,
                               where_state)
 from ..ops.leapfrog import PhasePoint, leapfrog_step, masked_multistep
+from ..parallel.mesh import dim_max, dim_sum
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO
 
@@ -32,7 +36,7 @@ from ..utils.constants import LOG_ZERO
 def _dist(qa, ua, qb, ub, flip_u):
     dq = torch.amax(torch.abs(qa - qb), dim=-1)
     du = torch.amax(torch.abs(ua + ub if flip_u else ua - ub), dim=-1)
-    return torch.maximum(dq, du)
+    return dim_max(torch.maximum(dq, du))
 
 
 def _traj_search(integrate, s0: MCState, act, h_macro, delta, c_min, c_max):
@@ -135,8 +139,9 @@ class IsokineticKernel(NamedTuple):
         return MCState(q, torch.zeros_like(q), g, lp)
 
     def refresh(self, key, state, block=None):
-        shape, rows = draw_window(state.q.shape, block)
-        return state._replace(u=refresh_u(key, shape, state.q.dtype, rows))
+        shape, rows, cols = draw_window(state.q.shape, block)
+        return state._replace(u=refresh_u(key, shape, state.q.dtype, rows,
+                                          cols))
 
     def flip(self, state):
         return state._replace(u=-state.u)
@@ -188,8 +193,8 @@ class HMCKernel(NamedTuple):
         return MCState(q, torch.zeros_like(q), g, lp)
 
     def refresh(self, key, state, block=None):
-        shape, rows = draw_window(state.q.shape, block)
-        v = threefry.normal(key, shape, state.q.dtype, rows)
+        shape, rows, cols = draw_window(state.q.shape, block)
+        v = threefry.normal(key, shape, state.q.dtype, rows, cols)
         return state._replace(u=v)
 
     def flip(self, state):
@@ -199,7 +204,8 @@ class HMCKernel(NamedTuple):
         return state.u
 
     def ham(self, state):
-        return -state.lp + 0.5 * torch.sum(state.u * state.u, dim=-1)
+        return -state.lp + 0.5 * dim_sum(torch.sum(state.u * state.u,
+                                                   dim=-1))
 
     def step(self, key, target, state, h_macro, delta, active):
         del key

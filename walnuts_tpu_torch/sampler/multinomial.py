@@ -23,9 +23,13 @@
 JAX's ``lax.scan`` over iterations and the sweeps' ``while_loop``s are
 host loops (one host sync per sweep step).  Randomness is JAX's
 threefry stream (with x64 on, so the forward split is drawn as int64).
-With the chains split over the ranks of a 1-D mesh every draw is the
-rank's rows of the whole batch's; each chain adapts on its own, so each
-rank runs its chains with no collective.
+With the chains split over the ranks of a mesh every draw is the rank's
+rows of the whole batch's; each chain adapts on its own, so the chain
+ranks need no collective.  On a ``(chains, dim)`` mesh the run is inside
+:func:`..parallel.mesh.dim_split`: the momentum and the WASPS directions
+are the rank's columns of the whole draws, their norms and the four
+WASPS projections are dim-group sums, and ``scale`` and ``center`` are
+taken at the rank's columns.
 """
 
 from typing import NamedTuple
@@ -33,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.isokinetic import draw_window, where_state
-from ..parallel.mesh import STREAM_DIM_SPLIT_ITEM, chain_block, chains_only
+from ..parallel.mesh import chain_block, chain_ranks, dim_split, dim_sum
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -58,26 +62,29 @@ class MultinomialConfig(NamedTuple):
 
 class _Scaled:
     """The target in pre-scaled coordinates ``q / scale``: the step
-    kernels read only ``logp_grad``."""
+    kernels read only ``logp_grad``.  ``svec`` is the scale at the
+    batch's columns (a rank's window under a dim split); ``dim`` is the
+    target's whole D."""
 
     def __init__(self, target, svec):
-        self.target, self.svec, self.dim = target, svec, svec.shape[0]
+        self.target, self.svec, self.dim = target, svec, target.dim
 
     def logp_grad(self, q):
         lp, g = self.target.logp_grad(q * self.svec)
         return lp, g * self.svec
 
 
-def _wasps_vectors(key, shape, dtype, rows=None):
+def _wasps_vectors(key, shape, dtype, rows=None, cols=None):
     """``eta``, ``gam`` (note the ``1/||z||^2`` scaling: magnitudes
     cancel in the sign-based stop rule); ``rows`` of ``shape``'s
-    leading axis alone."""
+    leading axis and ``cols`` of its last alone, every sum over D the
+    dim group's."""
     k1, k2 = threefry.split(key).unbind(-2)
-    z1 = threefry.normal(k1, shape, dtype, rows)
-    z2 = threefry.normal(k2, shape, dtype, rows)
-    eta = z1 / torch.sum(z1 * z1, dim=-1, keepdim=True)
-    z2 = z2 - torch.sum(z2 * eta, dim=-1, keepdim=True) * eta
-    gam = z2 / torch.sum(z2 * z2, dim=-1, keepdim=True)
+    z1 = threefry.normal(k1, shape, dtype, rows, cols)
+    z2 = threefry.normal(k2, shape, dtype, rows, cols)
+    eta = z1 / dim_sum(torch.sum(z1 * z1, dim=-1, keepdim=True))
+    z2 = z2 - dim_sum(torch.sum(z2 * eta, dim=-1, keepdim=True)) * eta
+    gam = z2 / dim_sum(torch.sum(z2 * z2, dim=-1, keepdim=True))
     return eta, gam
 
 
@@ -109,7 +116,7 @@ def _direction_sweep(key, target, kernel, s0, ham0, n_steps, h, delta,
     sum, per-direction stats and the updated orbit stats.  ``block = (c0,
     C_total)``: the chains are rows ``c0 ..`` of the whole batch."""
     C = s0.q.shape[0]
-    u_shape, rows = draw_window((C,), block)
+    u_shape, rows, _ = draw_window((C,), block)
     dtype, dev = s0.q.dtype, s0.q.device
     W = torch.where
     zf = torch.zeros((C,), dtype=dtype, device=dev)
@@ -139,10 +146,9 @@ def _direction_sweep(key, target, kernel, s0, ham0, n_steps, h, delta,
         if cfg.wasps:
             cqs = s_new.q - cen
             cq = q_old - cen
-            p1s = torch.sum(cqs * eta, dim=-1)
-            p1 = torch.sum(cq * eta, dim=-1)
-            p2s = torch.sum(cqs * gam, dim=-1)
-            p2 = torch.sum(cq * gam, dim=-1)
+            p1s, p1, p2s, p2 = dim_sum(
+                torch.sum(cqs * eta, dim=-1), torch.sum(cq * eta, dim=-1),
+                torch.sum(cqs * gam, dim=-1), torch.sum(cq * gam, dim=-1))
             stop_now = active & ~dead & (p1s * p1 < 0.0) & (
                 torch.maximum(p2s, p2) > 0.0)
         else:
@@ -204,27 +210,43 @@ def run_multinomial(seed, q0, *, target, kernel=IsokineticKernel(),
 
     ``mesh``: a 1-D mesh (:func:`..parallel.make_mesh`): ``q0`` is this
     rank's block of chains (:func:`..parallel.shard_chains`) and the
-    outputs are its rows of the single-process run's.  A 2-D mesh
-    raises.
+    outputs are its rows of the single-process run's.  On a ``(chains,
+    dim)`` mesh (:func:`..parallel.make_mesh2`) ``q0`` is this rank's
+    (chain rows, column block) (:func:`..parallel.shard_chains_dim`),
+    ``scale`` and ``center`` are whole (scalars or ``[D]`` vectors), and
+    the rank returns its block as ``run_walnuts`` does (samples and
+    orbit statistics of an identity ``generated`` hold the rank's
+    columns; :func:`..diagnostics.gather_blocks` joins both axes).
 
     Returns ``(samples [num_iter+1, C, dg], diagnostics [num_iter, C,
     14], (h, delta) final)``, plus the per-iteration orbit minima and
     maxima of the generated quantities under ``collect_orbit_stats``.
     """
-    split = chains_only(mesh, STREAM_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     key = (seed.to(device=dev, dtype=torch.int64)
            if isinstance(seed, torch.Tensor) else threefry.PRNGKey(seed, dev))
     q0 = torch.as_tensor(q0).to(dev)
-    C, D = q0.shape
-    block = chain_block(mesh, C) if split else None
-    (Cg, _), rows = draw_window((C, D), block)
-    dtype = q0.dtype
+    block = chain_block(mesh, q0.shape[0]) if chain_ranks(mesh) > 1 \
+        else None
+    with dim_split(mesh, target.dim):
+        return _run(key, q0, target, kernel, cfg, h0, delta0, num_iter,
+                    warmup_iter, scale, center, collect_orbit_stats, block)
+
+
+def _run(key, q0, target, kernel, cfg, h0, delta0, num_iter, warmup_iter,
+         scale, center, collect_orbit_stats, block):
+    """:func:`run_multinomial`'s body on the rank's block."""
+    C = q0.shape[0]
+    dtype, dev = q0.dtype, q0.device
+    (Cg, D), rows, cols = draw_window(q0.shape, block)
+    d0, d1 = cols or (0, D)
     L = cfg.l_orbit
     W = torch.where
 
     svec = torch.as_tensor(scale, dtype=dtype).to(dev).expand(D)
-    cen = torch.as_tensor(center, dtype=dtype).to(dev).expand(D) / svec
+    cen = (torch.as_tensor(center, dtype=dtype).to(dev).expand(D)
+           / svec)[d0:d1]
+    svec = svec[d0:d1]
     scaled = _Scaled(target, svec)
 
     state = kernel.init(scaled, q0 / svec)
@@ -251,7 +273,7 @@ def run_multinomial(seed, q0, *, target, kernel=IsokineticKernel(),
         nb = L - 1 - nf
         eta = gam = None
         if cfg.wasps:
-            eta, gam = _wasps_vectors(k_wasps, (Cg, D), dtype, rows)
+            eta, gam = _wasps_vectors(k_wasps, (Cg, D), dtype, rows, cols)
         gen0 = (target.generated(s.q * svec) if collect_orbit_stats
                 else torch.zeros((C, 0), dtype=dtype, device=dev))
 

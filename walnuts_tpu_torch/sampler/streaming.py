@@ -21,11 +21,17 @@ with other counters and purposes: a chain's draws do not depend on the
 batch.  ``rng="global"`` keys each round's threefry draws by the round
 number, so a chain's path depends on the whole batch's progress.
 
-With the chains split over the ranks of a 1-D mesh (``mesh=``) every
-draw is keyed by the global chain (the hash's chain id ``c0 + c``, the
+With the chains split over the ranks of a mesh (``mesh=``) every draw
+is keyed by the global chain (the hash's chain id ``c0 + c``, the
 threefry draws' row window), and no step pools anything across chains,
-so each rank runs its chains with no collective: a rank's results are
-its rows of the single-process run.
+so the chain ranks need no collective: a rank's results are its rows of
+the single-process run.  On a ``(chains, dim)`` mesh the run is inside
+:func:`..parallel.mesh.dim_split`: the momentum is the rank's columns of
+the whole draw (the hash's lanes are the global columns ``d0 ..``, the
+threefry draw's column window), and the energies, the U-turn and merge
+dots and the integrators' errors are dim-group sums and maxima, so each
+per-chain flag the host loop reads is the same on every rank of the
+group.
 
 The round is the JAX loop body, with every per-chain schedule lookup a
 gather from tables built once on the host.  The loop is a host loop
@@ -38,7 +44,7 @@ import torch
 
 from ..ops.hamiltonian import hamiltonian, refresh_momentum, uturn
 from ..ops.integrators import get_integrator
-from ..parallel.mesh import STREAM_DIM_SPLIT_ITEM, chain_block, chains_only
+from ..parallel.mesh import chain_block, col_window, dim_split, dim_sum
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -109,16 +115,17 @@ def _hash_seed(seed):
     return int(threefry.randint(key, (1,), 0, 2 ** 30, torch.int32)[0])
 
 
-def _make_hash_draws(seed, C, D, dtype, dev, c0=0):
+def _make_hash_draws(seed, C, D, dtype, dev, c0=0, d0=0):
     """``draws(it, t)``: a round's draws keyed by (seed, chain id, the
     chain's ``it`` and ``t``, purpose): uniforms for the two jitters
     (purposes 0, 1), the two R2P coins (2, 3), the two category draws
     (4, 5) and the acceptance (6), the direction bits (7) and the
-    Box-Muller momentum (8, 9).  The chain ids are ``c0 .. c0+C-1``."""
+    Box-Muller momentum (8, 9).  The chain ids are ``c0 .. c0+C-1``, the
+    momentum's lanes the columns ``d0 .. d0+D-1``."""
     cid = torch.arange(c0, c0 + C, dtype=torch.int64, device=dev)
     h_c = _mix32(((seed & _M32) + _mul32(cid, HASH_M1)) & _M32)
-    lane_m1 = _mul32(torch.arange(D, dtype=torch.int64, device=dev),
-                     HASH_M1)
+    lane_m1 = _mul32(torch.arange(d0, d0 + D, dtype=torch.int64,
+                                  device=dev), HASH_M1)
 
     def to_f(x):
         return (x >> 8).to(dtype)
@@ -170,28 +177,45 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
             ``h_step`` and ``delta`` are this rank's block of chains
             (:func:`..parallel.shard_chains`), and the outputs are its
             rows of the single-process run's (the round count is the
-            rank's own).  A 2-D mesh raises.
+            rank's own).  On a ``(chains, dim)`` mesh
+            (:func:`..parallel.make_mesh2`) ``q0`` is this rank's (chain
+            rows, column block) (:func:`..parallel.shard_chains_dim`)
+            and the rank returns its block, as ``run_walnuts`` does:
+            samples of an identity ``generated`` and ``q_final`` hold
+            the rank's columns, the diagnostics whole rows
+            (:func:`..diagnostics.gather_blocks` joins both axes).
 
     Returns ``(samples [num_iter, C, dg], diagnostics [num_iter, C,
     24], q_final [C, D])``.  Restarting from ``q_final`` is exact (every
     transition begins with a momentum refresh), so long runs can be
     chunked.
     """
-    chains_only(mesh, STREAM_DIM_SPLIT_ITEM)
     dev = resolve_device(device)
     q0 = torch.as_tensor(q0).to(dev)
-    C, D = q0.shape
-    c0, C_total = chain_block(mesh, C)
-    rows = (c0, c0 + C) if C_total != C else None
     dtype = q0.dtype
     h_step = torch.as_tensor(h_step).to(device=dev, dtype=dtype)
     delta = torch.as_tensor(delta).to(device=dev, dtype=dtype)
-    m = cfg.m
-    if not 1 <= m <= 32:
+    if not 1 <= cfg.m <= 32:
         # direction draws come from one 32-bit word per transition
-        raise ValueError(f"cfg.m must be in [1, 32], got {m}")
+        raise ValueError(f"cfg.m must be in [1, 32], got {cfg.m}")
     if rng not in ("hash", "global"):
         raise ValueError(f"rng must be 'hash' or 'global', got {rng!r}")
+    with dim_split(mesh, target.dim):
+        return _stream(seed, q0, h_step, delta, target, cfg, num_iter, rng,
+                       stats, chain_block(mesh, q0.shape[0]))
+
+
+def _stream(seed, q0, h_step, delta, target, cfg, num_iter, rng, stats,
+            block):
+    """:func:`run_walnuts_streaming`'s rounds on the rank's block, its
+    chains ``c0 ..`` of ``C_total`` (``block``)."""
+    dev, dtype = q0.device, q0.dtype
+    C, D = q0.shape
+    c0, C_total = block
+    rows = (c0, c0 + C) if C_total != C else None
+    D_total, d_win = col_window(D)
+    d0 = d_win[0] if d_win else 0
+    m = cfg.m
     tab = _Tables(m, dev)
     T, S = tab.T, tab.S
     integrator = get_integrator(cfg.integrator)
@@ -229,7 +253,8 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
     diags = torch.zeros((num_iter, C, 24), dtype=dtype, device=dev)
 
     if rng == "hash":
-        hash_draws = _make_hash_draws(_hash_seed(seed), C, D, dtype, dev, c0)
+        hash_draws = _make_hash_draws(_hash_seed(seed), C, D, dtype, dev, c0,
+                                      d0)
     else:
         key = threefry.PRNGKey(seed, dev)
 
@@ -343,7 +368,8 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
             bits = (rr["dirs"][:, None] >> m_bits[None, :]) & 1
             xi_new = W(bits != 0, 1.0, -1.0).to(dtype)
         else:
-            v0 = refresh_momentum(k_mom, (C_total, D), None, dtype, rows)
+            v0 = refresh_momentum(k_mom, (C_total, D_total), None, dtype,
+                                  rows, d_win)
             xi_new = W(threefry.bernoulli(k_dirs, 0.5, (C_total, m),
                                           rows=rows), 1.0, -1.0).to(dtype)
         h0 = hamiltonian(st["lpc"], v0)
@@ -402,8 +428,8 @@ def run_walnuts_streaming(seed, q0, h_step, delta, *, target,
         # just-integrated state (q2, v2) in one [C, S, D] reduction; with
         # d_f = q2 - slab_q the time orientation only flips the signs
         d_f = q2[:, None, :] - st["slab_q"]
-        dot_new = torch.sum(v2[:, None, :] * d_f, dim=-1)
-        dot_old = torch.sum(st["slab_v"] * d_f, dim=-1)
+        dot_new, dot_old = dim_sum(torch.sum(v2[:, None, :] * d_f, dim=-1),
+                                   torch.sum(st["slab_v"] * d_f, dim=-1))
         ut_all = W(fw1, (dot_new < 0.0) | (dot_old < 0.0),
                    (dot_new > 0.0) | (dot_old > 0.0))
         merge_ut = torch.any(tab.check[t] & ut_all, dim=1)

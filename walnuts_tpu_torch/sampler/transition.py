@@ -40,7 +40,7 @@ import torch
 
 from ..ops.hamiltonian import hamiltonian, refresh_momentum, uturn
 from ..ops.integrators import IntegratorConfig, get_integrator
-from ..parallel.mesh import current_dim_split
+from ..parallel.mesh import col_window, current_dim_split
 from ..utils import threefry
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.p2 import P2State, p2_push
@@ -89,8 +89,7 @@ def _draws(key, C, D, T, dtype, cfg, im, chain_block=None):
     if chain_block is not None:
         c0, Cg = chain_block
         rows = (c0, c0 + C)
-    ds = current_dim_split()
-    Dg, cols = (D, None) if ds is None else (ds.D, (ds.d0, ds.d1))
+    Dg, cols = col_window(D)
     k_mom, k_dirs, k_orbit = threefry.split(key, 3)
     v0 = refresh_momentum(k_mom, (Cg, Dg), im, dtype, rows, cols)
     xi_all = torch.where(threefry.bernoulli(k_dirs, 0.5, (Cg, cfg.m),
