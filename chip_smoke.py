@@ -80,7 +80,12 @@ with ESS per 1000 gradient evaluations beside the JAX artifact's row;
 implicit midpoint, D = 10^4, 32 chains) for a few transitions behind
 the harness's z gate, with the fixed-point loop's host syncs; (c) its
 ``im_illcond`` and ``iso_illcond`` arms at D = 16 in float64 on the
-card against the CPU.
+card against the CPU.  Phase 14 holds the round kernel to the posterior
+at the JAX package's fused-engine tests' configurations
+(``tests/test_megakernel.py``, ``tests/test_float32.py``: small D,
+float64, ``micro_unroll`` 1 against 4, float32 against float64, in-loop
+and pooled warmup) behind their own gates, with the scan engine's side of
+two comparisons run on the host CPU meanwhile.
 
 Run from the repository root, with no arguments:
 
@@ -181,7 +186,9 @@ def main():
     phase_dim_split(tw, rk, dev, scan_s_per_it, iso_s_per_it)
     ext = phase_external(tw, mk, rk, dev, warm, main_run, ext_attrs)
     phase_examples(rk, dev)
+    stats_scans = start_stats_scans()
     phase_last_examples(rk, dev)
+    phase_stats(rk, dev, stats_scans)
     kernel = {"route": "cuda",
               "source": "walnuts_tpu_torch/csrc/round_kernel.cu",
               "replaces": "walnuts_tpu/sampler/pallas_megakernel.py:158",
@@ -2787,6 +2794,241 @@ def phase_last_examples(rk, dev):
             + (f"; fixed-point host syncs {syncs}" if arm.startswith("im_")
                else ""))
     log(f"phase 13c: {time.perf_counter() - t0:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the round kernel's posterior at the JAX tests' configurations
+# ---------------------------------------------------------------------------
+
+# Threads of each of phase 14's two CPU processes (the scan engine's side
+# of its comparisons); the card's runs go on meanwhile in this process.
+STATS_CPU_THREADS = 3
+
+
+def _stats_scan_run(job):
+    """One of phase 14's scan-engine runs, on the host CPU in a process of
+    its own (``run_walnuts(..., device="cpu")``): ``"gauss"``,
+    ``tests/test_megakernel.py:26-29``'s fixed-tuning run (its
+    diagnostics), or ``"warmup"``, ``:85-87``'s warmup run (its adapted
+    H and delta)."""
+    import torch
+    import walnuts_tpu_torch as tw
+    from walnuts_tpu_torch.utils import threefry
+
+    torch.set_num_threads(STATS_CPU_THREADS)
+    t0 = time.perf_counter()
+    if job == "gauss":
+        q0 = threefry.normal(threefry.PRNGKey(1), (128, 10), torch.float64)
+        wu = tw.WarmupConfig(warmup_iter=0, adapt_h=False, adapt_delta=False)
+        _, d, _ = tw.run_walnuts(
+            11, q0, target=tw.targets.std_gauss(10),
+            cfg=tw.WalnutsConfig(m=6), warmup=wu, num_iter=400, h0=0.5,
+            delta0=0.1, device="cpu")
+        out = dict(diags=d.numpy())
+    else:
+        q0 = 0.1 * threefry.normal(threefry.PRNGKey(3), (128, 11),
+                                   torch.float64)
+        _, _, st = tw.run_walnuts(
+            8, q0, target=tw.targets.funnel(11), cfg=tw.WalnutsConfig(m=6),
+            warmup=tw.WarmupConfig(warmup_iter=100), num_iter=100, h0=0.3,
+            delta0=0.3, device="cpu")
+        out = dict(h=st.h.numpy(), delta=st.delta.numpy())
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def start_stats_scans():
+    """Start phase 14's two scan-engine runs on the host CPU, in two
+    processes that run while phase 13 and phase 14's card runs go on;
+    returns the pool and the futures (``phase_stats`` shuts the pool)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {j: pool.submit(_stats_scan_run, j)
+                  for j in ("gauss", "warmup")}
+
+
+def phase_stats(rk, dev, scans):
+    """14: the fused engine's statistical tests of the JAX package
+    (``tests/test_megakernel.py``, ``tests/test_float32.py``) through
+    ``run_walnuts_fused`` on the card, at their sizes, starting points
+    (``PRNGKey(seed)`` through threefry), hash seeds (``key_hash_seed``)
+    and gates: (a) funnel(11)'s omega marginal, f64; (b) std_gauss(10)'s
+    moments and its orbit geometry against the scan engine at the same
+    seed; (c) ``micro_unroll`` 1 against 4 on funnel(8): moments,
+    gradients per transition within 10%, geometry; (d) float32 with the
+    bf16 slab against the engine's own float64 run; (e) in-loop warmup
+    against the scan engine's adaptation; (f) the pooled consensus.  The
+    scan engine's two runs (``scans``, from :func:`start_stats_scans`) go
+    on the host CPU in two processes while the card runs.  Every run must
+    launch the kernel; every gate prints its statistic, bound, launches
+    and wall, and a miss fails the phase."""
+    import numpy as np
+    import torch
+    import walnuts_tpu_torch as tw
+    from walnuts_tpu_torch.sampler.megakernel import key_hash_seed
+    from walnuts_tpu_torch.utils import threefry
+
+    t_phase = time.perf_counter()
+    misses = []
+
+    def normal(seed, shape, dtype=torch.float64):
+        return threefry.normal(threefry.PRNGKey(seed), shape, dtype)
+
+    def fused(tag, key, q0, h, dl, target, m, num_iter, **kw):
+        C = q0.shape[0]
+        rk.launches = rk.segment_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tw.run_walnuts_fused(
+            key_hash_seed(key), q0, torch.full((C,), h, dtype=q0.dtype),
+            torch.full((C,), dl, dtype=q0.dtype), target=target,
+            cfg=tw.WalnutsConfig(m=m), num_iter=num_iter, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rk.launches <= 0 or rk.segment_launches:
+            raise AssertionError(f"14{tag}: {rk.launches} fused launches, "
+                                 f"{rk.segment_launches} segment launches")
+        out = tuple(x.cpu().numpy() if torch.is_tensor(x) else x
+                    for x in out)
+        return out, rk.launches, wall
+
+    def gate(tag, name, stat, bound, run):
+        ok = bool(abs(stat) < bound)
+        log(f"phase 14{tag} {name}: {stat:.6g} against {bound:.6g} "
+            f"{'pass' if ok else 'MISS'} (launches {run[0]}, wall "
+            f"{run[1]:.2f} s)")
+        if not ok:
+            misses.append(f"14{tag} {name}")
+
+    pool, jobs = scans
+    with pool:
+        # (a) tests/test_megakernel.py:39-53
+        (s, _, _, _, _), n, wall = fused(
+            "a", 5, 0.1 * normal(0, (128, 11)), 0.32, 0.34,
+            tw.targets.funnel(11), 7, 600)
+        w = s[150:, :, 0].ravel()
+        n_eff = len(w) / 50
+        gate("a", "funnel(11) C=128 f64 omega mean", w.mean(),
+             5 * 3 / np.sqrt(n_eff), (n, wall))
+        gate("a", "omega sd - 3", w.std() - 3.0,
+             5 * 3 * np.sqrt(0.5 / n_eff), (n, wall))
+
+        # (b) tests/test_megakernel.py:12-36, the fused side
+        (s, d_f, _, _, _), n, wall = fused(
+            "b", 11, normal(1, (128, 10)), 0.5, 0.1, tw.targets.std_gauss(10),
+            6, 400)
+        x = s[100:]
+        n_eff = x.shape[0] * x.shape[1] / 8
+        run_b = (n, wall)
+        gate("b", "std_gauss(10) C=128 f64 mean", x.mean(),
+             5 / np.sqrt(n_eff), run_b)
+        gate("b", "sd - 1", x.std() - 1.0, 5 * np.sqrt(0.5 / n_eff), run_b)
+
+        # (c) tests/test_megakernel.py:282-311
+        outs = {}
+        for K in (1, 4):
+            (s, d, _, _, ng), n, wall = fused(
+                "c", 12, 0.1 * normal(4, (256, 8)), 0.4, 0.3,
+                tw.targets.funnel(8), 6, 300, micro_unroll=K)
+            outs[K] = (s[100:], d, float(ng), (n, wall))
+            log(f"phase 14c funnel(8) C=256 f64 micro_unroll={K}: "
+                f"{float(ng) / (300 * 256):.3f} grads per transition, "
+                f"launches {n}, wall {wall:.2f} s")
+        run_c = tuple(a + b for a, b in zip(outs[1][3], outs[4][3]))
+        w1, w4 = outs[1][0][..., 0], outs[4][0][..., 0]
+        se = 3.0 * np.sqrt(2.0 / (w1.size / 20))
+        gate("c", "omega mean K=1 - K=4", w1.mean() - w4.mean(), 5 * se,
+             run_c)
+        gate("c", "omega sd K=1 - K=4", w1.std() - w4.std(), 5 * se, run_c)
+        g1, g4 = (outs[K][2] / (300 * 256) for K in (1, 4))
+        gate("c", "grads per transition (K=1 - K=4) / K=1",
+             (g1 - g4) / g1, 0.1, run_c)
+        for col in (1, 8, 9, 21, 22):
+            m1, m4 = (outs[K][1][..., col].mean() for K in (1, 4))
+            gate("c", f"diagnostic column {col} mean K=1 - K=4", m1 - m4,
+                 0.25 + 0.05 * abs(m1), run_c)
+
+        # (d) tests/test_float32.py:44-74
+        q64 = 0.1 * normal(2, (128, 11))
+        res = {}
+        for tag, q0 in (("f64", q64), ("f32", q64.float())):
+            (s, d, _, _, _), n, wall = fused("d", 5, q0, 0.32, 0.34,
+                                             tw.targets.funnel(11), 7, 600)
+            w = s.astype(np.float64)[150:, :, 0].ravel()
+            res[tag] = (w.mean(), w.std(), d.astype(np.float64), (n, wall))
+        run_d = tuple(a + b for a, b in zip(res["f64"][3], res["f32"][3]))
+        n_eff = 128 * 450 / 50
+        gate("d", "funnel(11) C=128 omega mean f32 - f64",
+             res["f32"][0] - res["f64"][0], 7 * 3 / np.sqrt(n_eff), run_d)
+        gate("d", "omega sd f32 - f64", res["f32"][1] - res["f64"][1],
+             7 * 3 * np.sqrt(0.5 / n_eff), run_d)
+        e32, e64 = (res[k][2][..., 17].ravel() for k in ("f32", "f64"))
+        m32 = np.median(e32[np.isfinite(e32)])
+        m64 = np.median(e64[np.isfinite(e64)])
+        gate("d", "median orbit energy error f32 - f64", m32 - m64,
+             0.15 * max(m64, 0.05), run_d)
+
+        # (e) tests/test_megakernel.py:69-102, the fused side
+        out, n, wall = fused(
+            "e", 7, 0.1 * normal(3, (128, 11)), 0.3, 0.3,
+            tw.targets.funnel(11), 6, 100,
+            warmup=tw.WarmupConfig(warmup_iter=100))
+        d_e, h_mk, dl_mk = out[1], out[5], out[6]
+        run_e = (n, wall)
+
+        # (f) tests/test_megakernel.py:105-121
+        out, n, wall = fused(
+            "f", 9, normal(0, (64, 8)), 0.4, 0.2, tw.targets.std_gauss(8), 5,
+            60, warmup=tw.WarmupConfig(warmup_iter=60, pooled=True))
+        h_f, dl_f = out[5], out[6]
+        if not (np.all(np.isfinite(h_f)) and np.all(h_f > 0)):
+            misses.append("14f H finite and positive")
+        gate("f", "std_gauss(8) C=64 pooled: ptp(H) / median(H)",
+             np.ptp(h_f) / np.median(h_f), 1e-6, (n, wall))
+        gate("f", "ptp(delta) / median(delta)",
+             np.ptp(dl_f) / np.median(dl_f), 1e-6, (n, wall))
+
+        scan = {j: f.result() for j, f in jobs.items()}
+
+    # (b) the scan side: orbit geometry as the JAX test compares it
+    d_s = scan["gauss"]["diags"]
+    log(f"phase 14b scan engine on the host CPU, 400 transitions: "
+        f"{scan['gauss']['wall']:.2f} s")
+    for col in (1, 20, 9, 8, 21, 22):
+        gate("b", f"diagnostic column {col} mean fused - scan",
+             d_f[..., col].mean() - d_s[..., col].mean(), 0.1, run_b)
+    for code, bound in ((4, 0.05), (5, 0.02)):
+        gate("b", f"stop code {code} share fused - scan",
+             (d_f[..., 19] == code).mean() - (d_s[..., 19] == code).mean(),
+             bound, run_b)
+    gate("b", "grad count (column 6) mean fused - scan",
+         d_f[..., 6].mean() - d_s[..., 6].mean(), 1.0, run_b)
+
+    # (e) the scan side
+    log(f"phase 14e scan engine warmup on the host CPU, 100 transitions: "
+        f"{scan['warmup']['wall']:.2f} s")
+    h_mk, h_sc = (float(np.median(x)) for x in (h_mk, scan["warmup"]["h"]))
+    d_mk, d_sc = (float(np.median(x)) for x in (dl_mk,
+                                               scan["warmup"]["delta"]))
+    gate("e", "funnel(11) C=128 log(median H fused / scan)",
+         np.log(h_mk / h_sc), 0.5, run_e)
+    gate("e", "log(median delta fused / scan)", np.log(d_mk / d_sc), 0.7,
+         run_e)
+    moved_mk, moved_sc = np.log(h_mk / 0.3), np.log(h_sc / 0.3)
+    if not (abs(moved_sc) > 0.02 and abs(moved_mk) > 0.02
+            and np.sign(moved_mk) == np.sign(moved_sc)):
+        misses.append("14e adaptation moved H the same way")
+    log(f"phase 14e log(H / 0.3): fused {moved_mk:.4f}, scan "
+        f"{moved_sc:.4f} (each past 0.02, same sign)")
+    if not np.all(d_e[..., 18] > 0):
+        misses.append("14e delta (column 18) positive")
+
+    log(f"phase 14: {time.perf_counter() - t_phase:.2f} s")
+    if misses:
+        raise AssertionError(f"phase 14 missed: {misses}")
 
 
 def _counts(x):

@@ -266,3 +266,15 @@ def test_unfused_target_and_own_summary_match_jax(case):
     assert got[4] == int(np.asarray(want[-1].grad_ct).sum())
     for a, b in zip(want[:4], got[:4]):
         assert_parity(np.asarray(a), b.numpy(), EXACT)
+
+
+@pytest.mark.parametrize("key_seed", [0, 5, 11, 12, 2 ** 31 + 3])
+def test_key_hash_seed_is_jaxs_derivation(key_seed):
+    """``key_hash_seed(k)`` is the hash seed JAX's fused engine derives
+    from ``PRNGKey(k)`` (``megakernel.py:1258-1259``)."""
+    from walnuts_tpu_torch.sampler.megakernel import key_hash_seed
+
+    key = jax.random.PRNGKey(key_seed)
+    want = int(jax.random.randint(jax.random.fold_in(key, 777), (1,), 0,
+                                  2 ** 30, jnp.int32)[0])
+    assert key_hash_seed(key_seed) == want

@@ -34,6 +34,7 @@ from ..parallel.mesh import (FUSED_DIM_SPLIT_ITEM, chain_block, chains_only,
                              gather_rows, reduce_int, split)
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
+from ..utils import threefry
 from ..utils.p2 import P2State, p2_init, p2_push, p2_quantile
 from .driver import WarmupConfig
 from .transition import WalnutsConfig
@@ -961,6 +962,15 @@ def mstate_to_numpy(st: MState) -> dict:
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
+
+def key_hash_seed(key_seed: int) -> int:
+    """The int32 hash seed that the JAX ``run_walnuts_fused`` derives from
+    ``jax.random.PRNGKey(key_seed)`` (``megakernel.py:1258-1259``:
+    ``randint(fold_in(key, 777), (1,), 0, 2^30, int32)``), the ``seed``
+    that makes :func:`run_walnuts_fused` draw JAX's stream."""
+    key = threefry.fold_in(threefry.PRNGKey(key_seed), 777)
+    return int(threefry.randint(key, (1,), 0, 2 ** 30, torch.int32)[0])
+
 
 def run_walnuts_fused(seed, q0, h_step, delta, *, target,
                       cfg: WalnutsConfig, num_iter: int,

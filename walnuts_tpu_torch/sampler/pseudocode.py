@@ -185,6 +185,10 @@ def walnuts_step_pseudo(key, q, *, target, inv_mass, macro_step,
     W = torch.where
 
     for depth in range(max_depth):
+        if not bool((~done).any()):
+            # every chain has stopped: a later depth draws from its own
+            # fold_in key and changes no output, so it is skipped
+            break
         n_steps = 2 ** depth
         k_depth = threefry.fold_in(k_loop, depth)
         k_dir, k_acc, k_pick, k_scan = threefry.split(k_depth, 4)
