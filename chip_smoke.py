@@ -1921,6 +1921,28 @@ def _dim_exact_runs(tw, dev, mesh=None):
     return out
 
 
+_collectives = [0]  # dim-group collectives since the last reset to 0
+
+
+def _count_collectives():
+    """From now on, in this process, count each dim-group collective
+    (``parallel.mesh``'s all-reduces and column gathers) in
+    ``_collectives[0]``, by wrapping the two functions that make them."""
+    from walnuts_tpu_torch.parallel import mesh as pm
+
+    for name in ("_dim_reduce", "_gather_cols"):
+        f = getattr(pm, name)
+        if getattr(f, "counted", False):
+            continue
+
+        def counted(*args, _f=f):
+            _collectives[0] += 1
+            return _f(*args)
+
+        counted.counted = True
+        setattr(pm, name, counted)
+
+
 def _part_b_runs(tw, dev, mesh=None, counts=None, iters=10):
     """10f and 10g(a): float64 runs of the streaming engine (hash and
     global draws; funnel(11), 16 chains, m=5, R2P, per-chain tuning,
@@ -1935,7 +1957,6 @@ def _part_b_runs(tw, dev, mesh=None, counts=None, iters=10):
     import torch
     from walnuts_tpu_torch import parallel
     from walnuts_tpu_torch.diagnostics import gather_blocks
-    from walnuts_tpu_torch.parallel import mesh as pm
 
     sp, C = tw.sampler, 16
     rng = np.random.default_rng(8)
@@ -1952,10 +1973,11 @@ def _part_b_runs(tw, dev, mesh=None, counts=None, iters=10):
         return gather_blocks(x, mesh, chain_dim, cols=False)
 
     def run(name, fn):
-        pm.dim_collectives = 0
+        _count_collectives()
+        _collectives[0] = 0
         out[name] = fn()
         if counts is not None:
-            counts[name] = pm.dim_collectives
+            counts[name] = _collectives[0]
 
     def streaming(rng_mode):
         s, d, qf = sp.run_walnuts_streaming(
@@ -1997,12 +2019,12 @@ def _newton_runs(tw, dev, mesh=None, counts=None):
     import torch
     from walnuts_tpu_torch import parallel
     from walnuts_tpu_torch.diagnostics import gather_blocks
-    from walnuts_tpu_torch.parallel import mesh as pm
 
     C, D = 16, 11
     rng = np.random.default_rng(9)
     q0 = torch.from_numpy(0.5 * rng.normal(size=(C, D))).to(dev)
-    pm.dim_collectives = 0
+    _count_collectives()
+    _collectives[0] = 0
     s, d, st = tw.run_walnuts(
         6, parallel.shard_chains_dim(q0, mesh), target=tw.targets.funnel(D),
         cfg=tw.WalnutsConfig(m=4, integrator="adapt_implicit_midpoint_d",
@@ -2013,7 +2035,7 @@ def _newton_runs(tw, dev, mesh=None, counts=None):
         inv_mass=torch.linspace(0.6, 1.5, D, dtype=torch.float64),
         device=dev, mesh=mesh)
     if counts is not None:
-        counts["Newton"] = pm.dim_collectives
+        counts["Newton"] = _collectives[0]
     return {"Newton": [gather_blocks(s, mesh), gather_blocks(d, mesh,
                                                              cols=False),
                        gather_blocks(st.q, mesh, 0)]}
@@ -2029,7 +2051,6 @@ def _iso_dim_run(tw, dev, mesh):
     from walnuts_tpu_torch import parallel
     from walnuts_tpu_torch.diagnostics import gather_blocks
     from walnuts_tpu_torch.examples import highdim_variants as hv
-    from walnuts_tpu_torch.parallel import mesh as pm
     from walnuts_tpu_torch.utils import threefry
 
     C, D = ISO_CHAINS, ISO_DIM
@@ -2037,7 +2058,8 @@ def _iso_dim_run(tw, dev, mesh):
     key = threefry.PRNGKey(sum(map(ord, "iso_std")), dev)
     q = parallel.shard_chains_dim(threefry.normal(key, (C, D),
                                                   torch.float32), mesh)
-    pm.dim_collectives = 0
+    _count_collectives()
+    _collectives[0] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s, d = tw.sampler.run_generic_nuts(
@@ -2045,7 +2067,7 @@ def _iso_dim_run(tw, dev, mesh):
         kernel=tw.sampler.IsokineticKernel(), h_macro=1.4 * D ** -0.25,
         delta=0.2, num_iter=DIM_ISO_ITERS, m=ISO_M, device=dev, mesh=mesh)
     torch.cuda.synchronize()
-    return dict(wall=time.perf_counter() - t0, coll=pm.dim_collectives,
+    return dict(wall=time.perf_counter() - t0, coll=_collectives[0],
                 block=tuple(q.shape), diag_local=d.cpu(),
                 draws=gather_blocks(s, mesh, cols=False).cpu(),
                 diag=gather_blocks(d, mesh, cols=False).cpu())
@@ -2063,7 +2085,6 @@ def rank_dim_split():
     import walnuts_tpu_torch as tw
     from walnuts_tpu_torch import parallel
     from walnuts_tpu_torch.diagnostics import gather_blocks
-    from walnuts_tpu_torch.parallel import mesh as pm
     from walnuts_tpu_torch.sampler import round_kernel as rk
 
     def host(tree):
@@ -2079,7 +2100,8 @@ def rank_dim_split():
     g = torch.Generator(device=dev).manual_seed(0)
     q0 = 0.1 * torch.randn(C, D, generator=g, device=dev)    # 6b's start
     q = parallel.shard_chains_dim(q0, mesh)
-    pm.dim_collectives = rk.launches = 0
+    _count_collectives()
+    _collectives[0] = rk.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s, d, st = tw.run_walnuts(
@@ -2088,7 +2110,7 @@ def rank_dim_split():
         warmup=tw.WarmupConfig(warmup_iter=SCAN_WARMUP), num_iter=DIM_ITERS,
         h0=0.3, delta0=0.3, device=dev, mesh=mesh)
     torch.cuda.synchronize()
-    out.update(wall=time.perf_counter() - t0, coll=pm.dim_collectives,
+    out.update(wall=time.perf_counter() - t0, coll=_collectives[0],
                launches=rk.launches, block=tuple(q.shape),
                diag_local=d.cpu())
     s, d = gather_blocks(s, mesh), gather_blocks(d, mesh, cols=False)

@@ -330,9 +330,6 @@ class DimSplit(NamedTuple):
 # the enclosing dim_split's DimSplit (None outside one), per thread
 _ACTIVE: ContextVar[Optional[DimSplit]] = ContextVar("dim_split",
                                                      default=None)
-# Dim-group collectives made in this process (all-reduces and column
-# gathers), for the caller to reset and read around a run.
-dim_collectives = 0
 
 
 @contextmanager
@@ -371,8 +368,6 @@ def col_window(width: int):
 
 
 def _dim_reduce(x, op):
-    global dim_collectives
-    dim_collectives += 1
     group = _ACTIVE.get().group
     t = _staged(x, group)
     t = (t.clone() if t is x else t).contiguous()  # reduced in place
@@ -412,8 +407,6 @@ def dim_all(b):
 
 
 def _gather_cols(x, group, n: int, D: int):
-    global dim_collectives
-    dim_collectives += 1
     width = -(-D // n)
     # blocks are full but the last: pad each to the full width, gather,
     # join and cut the last block's padding off the end

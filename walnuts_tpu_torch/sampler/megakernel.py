@@ -34,7 +34,7 @@ from ..parallel.mesh import (FUSED_DIM_SPLIT_ITEM, chain_block, chains_only,
                              gather_rows, reduce_int, split)
 from ..utils.constants import LOG_ZERO, WT_SUM_THRESH
 from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
-from ..utils import threefry
+from ..utils import threefry, trace
 from ..utils.p2 import P2State, p2_init, p2_push, p2_quantile
 from .driver import WarmupConfig
 from .transition import WalnutsConfig
@@ -1080,57 +1080,76 @@ def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
     if micro_unroll < 1:
         raise ValueError(f"micro_unroll must be >= 1, got {micro_unroll}")
 
-    st = mk_state if mk_state is not None else init_state(
-        q0, h_step, delta, target=target, cfg=cfg, warmup=warmup,
-        num_iter=num_iter, ring_rows=ring_rows, diag_rows=diag_rows,
-        adapt_state=adapt_state)
-    c0, C_total = chain_block(mesh, C)
-    spec = round_kernel.RoundSpec(
-        target=target, cfg=cfg, warmup=warmup, stop_mode=stop_mode,
-        num_iter=num_iter, micro_unroll=micro_unroll, seed=int(seed), c0=c0)
-    # on the card, a summary the kernel does not store is mapped in torch
-    # over the positions it stages (round_kernel.defer_summary)
-    ring = None
-    if run_period is round_kernel.run_rounds and dev.type == "cuda" and \
-            not round_kernel.check_card(spec):
-        ring = st.samples.clone()
-        ident, st = round_kernel.defer_summary(st, target)
-        spec = spec._replace(target=ident)
-    banks = round_kernel.pack(st)
-    n = n0 = st.n
-    view = round_kernel.unpack(banks, n)
-    total_target = C_total * num_iter
-    try:
-        while True:
-            # the stop test counts every rank's chains, before the rounds
-            # cap, so that all ranks make the same launches and collectives
-            if stop_mode == "total":
-                live = reduce_int(view.it.sum(), mesh, "sum") < total_target
-            else:
-                live = bool(reduce_int((view.it < num_iter).any(), mesh,
-                                       "max"))
-            if rounds is not None:
-                live = live and n < n0 + rounds
-            if not live:
-                break
-            it0 = None if ring is None else view.it.clone()
-            run_period(banks, n, spec)
+    with trace.span("call"):
+        st = mk_state if mk_state is not None else init_state(
+            q0, h_step, delta, target=target, cfg=cfg, warmup=warmup,
+            num_iter=num_iter, ring_rows=ring_rows, diag_rows=diag_rows,
+            adapt_state=adapt_state)
+        c0, C_total = chain_block(mesh, C)
+        spec = round_kernel.RoundSpec(
+            target=target, cfg=cfg, warmup=warmup, stop_mode=stop_mode,
+            num_iter=num_iter, micro_unroll=micro_unroll, seed=int(seed),
+            c0=c0)
+        ring = None
+        with trace.span("pack"):
+            # on the card, a summary the kernel does not store is mapped
+            # in torch over the positions it stages
+            # (round_kernel.defer_summary)
+            if run_period is round_kernel.run_rounds and \
+                    dev.type == "cuda" and not round_kernel.check_card(spec):
+                ring = st.samples.clone()
+                ident, st = round_kernel.defer_summary(st, target)
+                spec = spec._replace(target=ident)
+            banks = round_kernel.pack(st)
+        n = n0 = st.n
+        view = round_kernel.unpack(banks, n)
+        total_target = C_total * num_iter
+        try:
+            while True:
+                with trace.span("period"):
+                    # the stop test counts every rank's chains, before the
+                    # rounds cap, so that all ranks make the same launches
+                    # and collectives
+                    with trace.span("readback"):
+                        if stop_mode == "total":
+                            live = reduce_int(view.it.sum(), mesh,
+                                              "sum") < total_target
+                        else:
+                            live = bool(reduce_int(
+                                (view.it < num_iter).any(), mesh, "max"))
+                    if rounds is not None:
+                        live = live and n < n0 + rounds
+                    if not live:
+                        break
+                    it0 = None if ring is None else view.it.clone()
+                    with trace.span("launch"):
+                        run_period(banks, n, spec)
+                    if ring is not None:
+                        with trace.span("summarize"):
+                            round_kernel.summarize(ring, view.samples, it0,
+                                                   view.it, target,
+                                                   stop_mode, num_iter)
+                    n += FLUSH_EVERY
+                    if warmup is not None and warmup.pooled:
+                        with trace.span("consensus",
+                                        device=dev.type == "cuda"):
+                            h_cur, delta_cur = pooled_consensus(view, warmup,
+                                                                mesh)
+                            view.h_cur.copy_(h_cur)
+                            view.delta_cur.copy_(delta_cur)
+        except BaseException:
+            round_kernel.release_graphs()
+            raise
+        with trace.span("unpack"):
+            # the external-gradient periods' CUDA graphs hold these banks
+            round_kernel.release_graphs()
+            st = round_kernel.unpack(banks, n)
             if ring is not None:
-                round_kernel.summarize(ring, view.samples, it0, view.it,
-                                       target, stop_mode, num_iter)
-            n += FLUSH_EVERY
-            if warmup is not None and warmup.pooled:
-                h_cur, delta_cur = pooled_consensus(view, warmup, mesh)
-                view.h_cur.copy_(h_cur)
-                view.delta_cur.copy_(delta_cur)
-    finally:
-        # the external-gradient periods' CUDA graphs hold these banks
-        round_kernel.release_graphs()
-    st = round_kernel.unpack(banks, n)
-    if ring is not None:
-        st = st._replace(samples=ring, pgen0=target.generated(st.pgen0),
-                         pgen1=target.generated(st.pgen1))
-    total_grads = int(st.grad_ct.to(torch.int64).sum())
+                st = st._replace(samples=ring,
+                                 pgen0=target.generated(st.pgen0),
+                                 pgen1=target.generated(st.pgen1))
+            with trace.span("readback"):
+                total_grads = int(st.grad_ct.to(torch.int64).sum())
     out = (st.samples, st.diags, st.qc, st.it, total_grads)
     if warmup is not None:
         out = out + (st.h_cur, st.delta_cur, (st.p2h, st.p2d))

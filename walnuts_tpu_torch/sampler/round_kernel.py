@@ -79,6 +79,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..targets.analytic import omega_sumsq
+from ..utils import trace
 from ..utils.p2 import P2State
 from .driver import WarmupConfig
 from .megakernel import (FLUSH_EVERY, STOP_MODES, MState, dtype_consts,
@@ -536,7 +537,8 @@ def _run_segments(b: Banks, n: int, params: _RoundParams, spec: RoundSpec,
         key = _graph_key(params, spec.target)
         per = _graphs.get(key)
         if per is None:
-            per = _graphs[key] = _capture_period(b, params, spec, launch)
+            with trace.span("capture"):
+                per = _graphs[key] = _capture_period(b, params, spec, launch)
     else:
         per = _Period(None, b.vx.new_empty((C, D)),
                       torch.empty(1, dtype=torch.int32, device=b.vx.device),
