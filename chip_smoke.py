@@ -1647,9 +1647,10 @@ def rank_main_path():
     mesh = parallel.make_mesh()
     r = run_main_path(tw, mk, rk, dev, mesh)
 
-    # a warmup launch's collectives (the stop test's all-reduce and the
-    # consensus' all-gather of three rows), against the one-process stop
-    # test's host sync alone
+    # the collectives of a warmup period when the stop test is read
+    # (its all-reduce, once a turn of the host loop, and the consensus'
+    # all-gather of three rows, every period), against the one-process
+    # stop test's host sync alone
     st, n = r["final"], 200
     rows = torch.stack([st.it.to(st.h_cur.dtype), st.h_cur, st.delta_cur])
     timings = []
@@ -1703,7 +1704,8 @@ def phase_ranks_main(tw, mk, rk, dev, main_run):
         f"(phase 4 {main_run['launches']}); adapted H median "
         f"{outs[0]['h']:.4f}, delta median {outs[0]['delta']:.4f}; "
         f"{wall:.1f} s with the ranks' start; on {CARD}")
-    log(f"phase 10b collectives per warmup launch (stop-test all-reduce + "
+    log(f"phase 10b collectives of a warmup period that reads the stop "
+        f"test (stop-test all-reduce + "
         f"consensus all-gather of 3 x {MAIN_C // 2}, gloo through the "
         f"host, 200 "
         f"times): {[round(o['coll_ms'], 4) for o in outs]} ms per rank, "

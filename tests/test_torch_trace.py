@@ -3,11 +3,13 @@
 On the CPU, at funnel(7), C = 16, m = 4, float64, 64 rounds: off, the
 engine reads no clock and records nothing; on, its outputs are bit for
 bit the same and the spans form the call's tree (one ``call``, ``pack``
-and ``unpack``, a ``period`` per launch and one more that only reads
-the stop test, a ``consensus`` in each launched period under pooled
-warmup); under ``torch.profiler`` they turn on by themselves and lie on
-its clock.  One case, marked ``cuda``, holds the external-gradient
-route's spans to the card's trace.  The file imports neither JAX nor
+and ``unpack``, a ``period`` per turn of the loop: its stop test's
+``readback``, a ``launch`` and an ``ahead`` for each later flush period
+the turn queues, a ``consensus`` for each flush period under pooled
+warmup; a run to its stop ends in a turn that only reads); under
+``torch.profiler`` they turn on by themselves and lie on its clock.
+One case, marked ``cuda``, holds the external-gradient route's spans to
+the card's trace.  The file imports neither JAX nor
 the JAX package:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_trace.py
@@ -42,13 +44,13 @@ def fresh_spans():
     trace.reset()
 
 
-def _run(warmup=None):
+def _run(warmup=None, num_iter=1000, rounds=ROUNDS):
     return tw.run_walnuts_fused(
         12345, torch.from_numpy(Q0), torch.full((C,), 0.4, dtype=torch.float64),
         torch.full((C,), 0.15, dtype=torch.float64),
         target=tw.targets.funnel(D), cfg=tw.WalnutsConfig(m=M),
         warmup=None if warmup is None else tw.WarmupConfig(**warmup),
-        num_iter=1000, rounds=ROUNDS, device="cpu")
+        num_iter=num_iter, rounds=rounds, device="cpu")
 
 
 def _flat(x):
@@ -106,11 +108,13 @@ def test_spans_form_the_call_tree():
     spans = trace.spans()
     names = Counter(s.name for s in spans)
     assert (names["call"], names["pack"], names["unpack"]) == (1, 1, 1)
+    # the rounds cap ends the call in one turn: its one stop test proves
+    # every period live, and the cap is known without a read
     periods = _periods(spans)
-    assert [p.count("launch") for p in periods] == [1] * PERIODS + [0]
-    assert periods[-1] == ["readback"]
-    assert names["readback"] == PERIODS + 2
-    assert names["launch"] == PERIODS and "capture" not in names
+    assert periods == [["readback", "launch"] + ["ahead"] * (PERIODS - 1)]
+    assert names["readback"] == 2
+    assert names["launch"] + names["ahead"] == PERIODS
+    assert "capture" not in names
     assert spans[0].name == "call" and spans[0].parent == -1
     for i, s in enumerate(spans):
         assert s.t0_ns <= s.t1_ns and s.device_us is None
@@ -120,14 +124,35 @@ def test_spans_form_the_call_tree():
     parents = {(s.name, spans[s.parent].name) for s in spans[1:]}
     assert parents == {("pack", "call"), ("period", "call"),
                        ("readback", "period"), ("launch", "period"),
-                       ("unpack", "call"), ("readback", "unpack")}
+                       ("ahead", "period"), ("unpack", "call"),
+                       ("readback", "unpack")}
+
+
+def test_a_run_to_its_stop_ends_in_a_turn_that_only_reads():
+    """Without a rounds cap the stop test ends the call: every turn but
+    the last launches, each turn queues the periods its read proves
+    live, and the last reads the stop and launches nothing."""
+    trace.enable(True)
+    mk.stop_readbacks = 0
+    out = _run(num_iter=6, rounds=None)
+    spans = trace.spans()
+    periods = _periods(spans)
+    assert len(periods) == mk.stop_readbacks >= 3
+    assert periods[-1] == ["readback"]
+    for p in periods[:-1]:
+        assert p[:2] == ["readback", "launch"] and set(p[2:]) <= {"ahead"}
+    assert int(out[3].min()) >= 6
+    launched = sum(len(p) - 1 for p in periods)
+    assert launched > len(periods)
 
 
 def test_pooled_warmup_holds_a_consensus_in_each_launched_period():
     trace.enable(True)
     _run(POOLED)
     periods = _periods(trace.spans())
-    assert [p.count("consensus") for p in periods] == [1] * PERIODS + [0]
+    assert [p.count("consensus") for p in periods] == [PERIODS]
+    assert [p.count("launch") + p.count("ahead") for p in periods] == [
+        PERIODS]
     assert all(s.device_us is None for s in trace.spans())
 
 
@@ -141,8 +166,10 @@ def test_profiler_turns_spans_on_and_shares_their_clock(monkeypatch):
     monkeypatch.setattr(rk, "run_rounds", marked)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _run()
-    launches = [s for s in trace.spans() if s.name == "launch"]
-    assert len(launches) == PERIODS
+    # the turn's launch, then its periods queued ahead, in order
+    launches = [s for s in trace.spans() if s.name in ("launch", "ahead")]
+    assert [s.name for s in launches] == ["launch"] + ["ahead"] * (
+        PERIODS - 1)
     events = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
               for e in prof.profiler.kineto_results.events()]
     marks = sorted(e for e in events if e[2] == "test.launch")
@@ -189,8 +216,9 @@ def test_external_route_spans_on_the_card(cuda_device):
     spans = trace.spans()
     names = Counter(s.name for s in spans)
     assert names["call"] == names["capture"] == calls
-    launches = [s for s in spans if s.name == "launch"]
+    launches = [s for s in spans if s.name in ("launch", "ahead")]
     assert len(launches) == calls * PERIODS
+    assert names["launch"] == names["period"] == calls
     for s in spans:
         if s.name == "capture":
             assert spans[s.parent].name == "launch"

@@ -244,3 +244,94 @@ def dim_split(scan_cases, part_b_cases, dim_b_cases):
     out["rank"], out["coords"] = dist.get_rank(), tuple(
         mesh.get_coordinate())
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fused engine's launch-ahead (tests/test_torch_launch_ahead.py)
+# ---------------------------------------------------------------------------
+
+class Counted:
+    """``round_kernel.run_rounds`` wrapped, while the context is open, to
+    count the flush periods it runs (``periods``)."""
+
+    def __enter__(self):
+        from walnuts_tpu_torch.sampler import round_kernel as rk
+
+        self.rk, self.real, self.periods = rk, rk.run_rounds, 0
+
+        def run_rounds(*args):
+            self.periods += 1
+            self.real(*args)
+
+        rk.run_rounds = run_rounds
+        return self
+
+    def __exit__(self, *exc):
+        self.rk.run_rounds = self.real
+        return False
+
+
+def period_by_period(call):
+    """``call(rounds, mk_state)`` as calls of one flush period, each
+    resumed from the last one's state, until a call launches nothing.
+    Returns ``(the last call's outputs, [C] draw counts before the first
+    period and after each, the stop test's reads of each call)``."""
+    from walnuts_tpu_torch.sampler import megakernel as mk
+
+    out, its, reads, st = None, [], [], None
+    while True:
+        mk.stop_readbacks = 0
+        with Counted() as c:
+            out = call(mk.FLUSH_EVERY, st)
+        reads.append(mk.stop_readbacks)
+        if not its:
+            its.append(torch.zeros_like(out[-1].it))
+        if not c.periods:
+            return out, its, reads
+        st = out[-1]
+        its.append(st.it.clone())
+
+
+def launch_ahead(q0, seed, cases):
+    """``tests/test_torch_launch_ahead.py``'s two ranks: for each
+    ``(stop_mode, num_iter)`` of ``cases``, funnel(7) on this rank's
+    block run to its stop in one call and period by period.  Returns per
+    case the call's rounds, periods and stop-test reads, whether its
+    state equals the period-by-period run's bit for bit, and every
+    chain's draw count before each period, gathered."""
+    from walnuts_tpu_torch.sampler import megakernel as mk
+
+    mesh = parallel.make_mesh()
+    C = q0.shape[0]
+    q, h, dl = parallel.shard_chains(
+        (q0, np.full(C, 0.4), np.full(C, 0.15)), mesh)
+    out = []
+    for mode, num_iter in cases:
+        def call(rounds, st):
+            return tw.run_walnuts_fused(
+                seed, q, h, dl, target=tw.targets.funnel(7),
+                cfg=tw.WalnutsConfig(m=4), num_iter=num_iter,
+                stop_mode=mode, rounds=rounds, mk_state=st, device="cpu",
+                mesh=mesh)
+
+        ref, its, _ = period_by_period(call)
+        mk.stop_readbacks = 0
+        with Counted() as c:
+            one = call(10 ** 6, None)
+        same = all(torch.equal(a, b)
+                   for a, b in zip(flat(one[-1]), flat(ref[-1])))
+        out.append(dict(
+            rounds=one[-1].n, periods=c.periods, reads=mk.stop_readbacks,
+            same=same, its=[_np(parallel.gather_rows(x, mesh))
+                            for x in its]))
+    return out
+
+
+def flat(x):
+    """Every tensor of a (nested) tuple of a run's state, in order; a
+    number as a 0-dim tensor."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [y for v in x for y in flat(v)]
+    return [torch.as_tensor(x)]

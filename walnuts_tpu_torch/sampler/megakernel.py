@@ -24,6 +24,7 @@ so a chain's trajectory depends only on its own id, and the port
 replays the JAX engine's uniforms and direction bits bitwise.
 """
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -972,6 +973,36 @@ def key_hash_seed(key_seed: int) -> int:
     return int(threefry.randint(key, (1,), 0, 2 ** 30, torch.int32)[0])
 
 
+stop_readbacks = 0  # blocking reads of the stop test made by _run
+
+
+def live_periods(it, stop_mode: str, num_iter: int, C_total: int,
+                 mesh=None) -> int:
+    """How many more flush periods the stop test is certain not to end,
+    from one blocking read of the draw counts ``it [C]`` (all-reduced
+    over the ranks of ``mesh``, whose chains number ``C_total``); 0 where
+    it ends the run now.
+
+    A chain starts a transition only while one of its two pending slots
+    is free, every transition it completes below ``num_iter`` fills a
+    slot, and only the flush at a period's end empties them: a chain
+    below ``num_iter`` gains at most 2 draws a period.  So the slowest
+    chain of ``per_chain`` and ``min_per_chain``, ``m`` draws, stays
+    below ``num_iter`` for ``ceil((num_iter - m) / 2)`` periods, and the
+    ``total`` test's sum ``S`` stays below ``C_total * num_iter`` for
+    ``ceil((C_total * num_iter - S) / (2 C_total))``.  Every rank reads
+    the same count, so all make the same launches and collectives."""
+    global stop_readbacks
+    stop_readbacks += 1
+    if stop_mode == "total":
+        short = C_total * num_iter - reduce_int(it.sum(), mesh, "sum")
+        per = 2 * C_total
+    else:
+        short = num_iter - reduce_int(it.min(), mesh, "min")
+        per = 2
+    return max(0, -(-short // per))
+
+
 def run_walnuts_fused(seed, q0, h_step, delta, *, target,
                       cfg: WalnutsConfig, num_iter: int,
                       stop_mode: str = "per_chain",
@@ -1009,8 +1040,10 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
     draws), ``"total"`` (until ``C * num_iter`` draws exist; rings keep
     each chain's most recent draws) or ``"min_per_chain"`` (until every
     chain has ``num_iter`` draws; chains past quota keep transitioning
-    and the rings keep each chain's first draws).  Termination is
-    checked once per flush period of 16 rounds.
+    and the rings keep each chain's first draws).  The host reads the
+    stop test back once, queues every flush period of 16 rounds that the
+    test cannot yet end (:func:`live_periods`), and reads it again:
+    the periods that run are those of a test after every period.
 
     ``warmup``: ``h_step``/``delta`` are initial values, adapted in-loop
     for each chain's first ``warmup.warmup_iter`` transitions (per
@@ -1024,7 +1057,7 @@ def run_walnuts_fused(seed, q0, h_step, delta, *, target,
     arguments are this rank's block of chains
     (:func:`..parallel.shard_chains`).  Its hash draws are keyed by the
     global chain ids, the stop test counts every rank's chains (an
-    all-reduce per flush period) and the pooled consensus takes the
+    all-reduce per read) and the pooled consensus takes the
     whole batch's median, so every rank makes as many launches as one
     process would and returns its rows of that run.
 
@@ -1103,40 +1136,39 @@ def _run(run_period, seed, q0, h_step, delta, *, target, cfg, num_iter,
             banks = round_kernel.pack(st)
         n = n0 = st.n
         view = round_kernel.unpack(banks, n)
-        total_target = C_total * num_iter
         try:
             while True:
+                # the periods the rounds cap leaves, known on the host and
+                # the same on every rank: a call it ends reads no more
+                left = math.inf if rounds is None else -(
+                    (n - n0 - rounds) // FLUSH_EVERY)
+                if left <= 0:
+                    break
+                # a turn: one blocking read of the stop test, then every
+                # period it cannot end queued back to back
                 with trace.span("period"):
-                    # the stop test counts every rank's chains, before the
-                    # rounds cap, so that all ranks make the same launches
-                    # and collectives
                     with trace.span("readback"):
-                        if stop_mode == "total":
-                            live = reduce_int(view.it.sum(), mesh,
-                                              "sum") < total_target
-                        else:
-                            live = bool(reduce_int(
-                                (view.it < num_iter).any(), mesh, "max"))
-                    if rounds is not None:
-                        live = live and n < n0 + rounds
+                        live = min(left, live_periods(
+                            view.it, stop_mode, num_iter, C_total, mesh))
                     if not live:
                         break
-                    it0 = None if ring is None else view.it.clone()
-                    with trace.span("launch"):
-                        run_period(banks, n, spec)
-                    if ring is not None:
-                        with trace.span("summarize"):
-                            round_kernel.summarize(ring, view.samples, it0,
-                                                   view.it, target,
-                                                   stop_mode, num_iter)
-                    n += FLUSH_EVERY
-                    if warmup is not None and warmup.pooled:
-                        with trace.span("consensus",
-                                        device=dev.type == "cuda"):
-                            h_cur, delta_cur = pooled_consensus(view, warmup,
-                                                                mesh)
-                            view.h_cur.copy_(h_cur)
-                            view.delta_cur.copy_(delta_cur)
+                    for j in range(live):
+                        it0 = None if ring is None else view.it.clone()
+                        with trace.span("ahead" if j else "launch"):
+                            run_period(banks, n, spec)
+                        if ring is not None:
+                            with trace.span("summarize"):
+                                round_kernel.summarize(
+                                    ring, view.samples, it0, view.it, target,
+                                    stop_mode, num_iter)
+                        n += FLUSH_EVERY
+                        if warmup is not None and warmup.pooled:
+                            with trace.span("consensus",
+                                            device=dev.type == "cuda"):
+                                h_cur, delta_cur = pooled_consensus(
+                                    view, warmup, mesh)
+                                view.h_cur.copy_(h_cur)
+                                view.delta_cur.copy_(delta_cur)
         except BaseException:
             round_kernel.release_graphs()
             raise

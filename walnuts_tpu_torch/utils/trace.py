@@ -9,11 +9,13 @@ its ``call`` span as an ancestor.  The fused engine's host loop
 - ``call``: the whole call after its argument checks;
 - ``pack``: the fresh banks (``round_kernel.pack``), with the ring a
   deferred summary copies;
-- ``period``: one turn of the loop; the last of a call reads the stop
-  test and launches nothing;
-- ``readback``: a blocking read of the card (the stop test each period,
+- ``period``: one turn of the loop: the stop test read once, then
+  every flush period it cannot yet end queued; a turn whose test ends
+  the run launches nothing;
+- ``readback``: a blocking read of the card (the stop test each turn,
   the gradient count at the end);
-- ``launch``: one period's work queued (``round_kernel.run_rounds``);
+- ``launch``: the turn's first period queued (``round_kernel.run_rounds``);
+- ``ahead``: each later period of the turn queued, without a read;
 - ``capture``: inside ``launch``, a period of external-gradient
   segments captured as a CUDA graph;
 - ``summarize``: a deferred summary mapped over the staged draws;
