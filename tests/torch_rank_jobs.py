@@ -335,3 +335,159 @@ def flat(x):
     if isinstance(x, (tuple, list)):
         return [y for v in x for y in flat(v)]
     return [torch.as_tensor(x)]
+
+
+# ---------------------------------------------------------------------------
+# the chains axis's collectives, spanned and counted
+# (tests/test_torch_collectives.py)
+# ---------------------------------------------------------------------------
+
+def _collective_run(call):
+    """``call()`` with spans forced on; returns what it recorded of the
+    chains axis's collectives: the name of each ``collective`` span's
+    parent, whether each lies inside it, the collectives counted, the
+    stop test's reads and the flush periods queued."""
+    from walnuts_tpu_torch.parallel import mesh as pm
+    from walnuts_tpu_torch.sampler import megakernel as mk
+    from walnuts_tpu_torch.utils import trace
+
+    trace.reset()
+    trace.enable(True)
+    pm.chain_collectives = mk.stop_readbacks = 0
+    try:
+        call()
+        spans = trace.spans()
+    finally:
+        trace.enable(None)
+        trace.reset()
+    mine = [s for s in spans if s.name == "collective"]
+    return dict(
+        parents=[spans[s.parent].name if s.parent >= 0 else None
+                 for s in mine],
+        inside=all(spans[s.parent].t0_ns <= s.t0_ns <= s.t1_ns
+                   <= spans[s.parent].t1_ns for s in mine if s.parent >= 0),
+        counted=pm.chain_collectives, reads=mk.stop_readbacks,
+        periods=sum(s.name in ("launch", "ahead") for s in spans))
+
+
+def collectives(q0, seed, rounds, pooled):
+    """Funnel(7) on this rank's block of ``q0`` through the fused engine
+    on the CPU: a call capped at ``rounds`` under fixed tuning, the same
+    under ``pooled`` warmup, and a run to its stop; each as
+    :func:`_collective_run` reports it.  Then ``reduce_int`` of this
+    rank's values (``5`` on rank 0, ``-2`` on rank 1) by every op, from a
+    0-dim int32 tensor, an int64 one (which must come back unchanged)
+    and a host int.  Started as one process, it makes a group of one
+    rank, whose mesh splits nothing."""
+    if not dist.is_initialized():
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="walnuts_one_rank_") as tmp:
+            dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                    world_size=1, rank=0)
+            try:
+                return collectives(q0, seed, rounds, pooled)
+            finally:
+                dist.destroy_process_group()
+    mesh = parallel.make_mesh()
+    assert mesh is not None
+    C = q0.shape[0]
+    q, h, dl = parallel.shard_chains(
+        (q0, np.full(C, 0.4), np.full(C, 0.15)), mesh)
+
+    def run(rounds, num_iter=10 ** 6, warmup=None):
+        return lambda: tw.run_walnuts_fused(
+            seed, q, h, dl, target=tw.targets.funnel(7),
+            cfg=tw.WalnutsConfig(m=4), num_iter=num_iter,
+            warmup=None if warmup is None else tw.WarmupConfig(**warmup),
+            rounds=rounds, device="cpu", mesh=mesh)
+
+    out = dict(fixed=_collective_run(run(rounds)),
+               pooled=_collective_run(run(rounds, warmup=pooled)),
+               to_stop=_collective_run(run(None, num_iter=6)))
+    v = (5, -2)[dist.get_rank()]
+    t64 = torch.tensor(v, dtype=torch.int64)
+    out["reduce"] = {
+        (op, kind): parallel.reduce_int(x, mesh, op)
+        for op in ("sum", "min", "max")
+        for kind, x in (("int32", torch.tensor(v, dtype=torch.int32)),
+                        ("int64", t64), ("int", v))}
+    out["int64_kept"] = int(t64) == v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the chains split over NCCL ranks, a card each
+# (tests/test_torch_parallel_gpu.py)
+# ---------------------------------------------------------------------------
+
+TO_STOP = 12          # fused_rows' run to its stop: the slowest chain's draws
+REDUCED = (5, -2, 11, 0)  # nccl_rows' values of reduce_int, by rank
+
+
+def fused_rows(q0, seed, mesh=None, device="cuda"):
+    """The main path's settings on funnel(101) (m = 8, R2P, 4 micro steps
+    a round, float32, the kernel's stored ``omega_sumsq``) over this
+    rank's block of ``q0``: two sampling calls capped at 256 rounds, the
+    second resuming the first, at H = 0.0973, delta = 0.2377; a call from
+    the same start that the stop test ends, at ``TO_STOP`` draws of the
+    slowest chain (its cap, 2^20 rounds, is never reached); then, from
+    the same start at H = delta = 0.3, one call of four flush periods of
+    pooled warmup.  Returns each phase's rows as host tensors, with the
+    chains axis's collectives counted and the stop test's reads."""
+    from walnuts_tpu_torch.parallel import mesh as pm
+    from walnuts_tpu_torch.sampler import megakernel as mk
+
+    C = q0.shape[0]
+    q, h, dl = parallel.shard_chains(
+        (torch.as_tensor(q0), torch.full((C,), 0.0973),
+         torch.full((C,), 0.2377)), mesh)
+    kw = dict(target=tw.targets.funnel(101, generated=tw.targets.omega_sumsq),
+              cfg=tw.WalnutsConfig(m=8), num_iter=200,
+              stop_mode="min_per_chain", micro_unroll=4, device=device,
+              mesh=mesh)
+    out = {}
+
+    def rows(st, total):
+        return dict(qc=st.qc.cpu(), it=st.it.cpu(), grad_ct=st.grad_ct.cpu(),
+                    samples=st.samples.cpu(), h=st.h_cur.cpu(),
+                    delta=st.delta_cur.cpu(), total=total, n=st.n,
+                    counted=pm.chain_collectives, reads=mk.stop_readbacks)
+
+    pm.chain_collectives = mk.stop_readbacks = 0
+    first = tw.run_walnuts_fused(seed, q, h, dl, rounds=256, **kw)
+    out["first"] = rows(first[-1], first[4])
+    second = tw.run_walnuts_fused(seed, q, h, dl, rounds=256,
+                                  mk_state=first[-1], **kw)
+    out["second"] = rows(second[-1], second[4])
+    pm.chain_collectives = mk.stop_readbacks = 0
+    stop = tw.run_walnuts_fused(seed, q, h, dl, rounds=2 ** 20,
+                                **dict(kw, num_iter=TO_STOP))
+    out["to_stop"] = rows(stop[-1], stop[4])
+    pm.chain_collectives = mk.stop_readbacks = 0
+    three = torch.full_like(h, 0.3)
+    wu = tw.run_walnuts_fused(
+        seed, q, three, three, rounds=4 * mk.FLUSH_EVERY,
+        warmup=tw.WarmupConfig(warmup_iter=1000, pooled=True), **kw)
+    out["warmup"] = rows(wu[-1], wu[4])
+    return out
+
+
+def nccl_rows(q0, seed):
+    """:func:`fused_rows` on this rank's card, the chains split over the
+    process group; then ``reduce_int`` of this rank's value
+    (``REDUCED[rank]``) by every op, from a 0-dim int32 and int64 tensor
+    on the card and from a host int."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh()
+    out = fused_rows(q0, seed, mesh, dev)
+    v = REDUCED[dist.get_rank()]
+    t64 = torch.tensor(v, dtype=torch.int64, device=dev)
+    out["reduce"] = {
+        (op, kind): parallel.reduce_int(x, mesh, op)
+        for op in ("sum", "min", "max")
+        for kind, x in (("int32", torch.tensor(v, dtype=torch.int32,
+                                               device=dev)),
+                        ("int64", t64), ("int", v))}
+    out["int64_kept"] = int(t64) == v
+    return out

@@ -16,7 +16,9 @@ On a 1-D mesh (chains over ranks) it
   draw in one process;
 * makes the few cross-chain steps collective: the pooled warmup
   median (an all-gather in rank order) and the fused engine's stop test
-  (an all-reduce).
+  (an all-reduce).  Each such collective is counted in
+  ``chain_collectives`` and timed as the span ``collective``
+  (:mod:`..utils.trace`).
 
 On a 2-D ``(chains, dim)`` mesh (:func:`make_mesh2`; every engine but
 the fused one) a rank holds a block of chains and a window of columns
@@ -49,6 +51,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils import trace
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.tree import tree_map
 
@@ -281,17 +284,30 @@ def _on_backend(t, group):
     return t.cuda() if dist.get_backend(group) == "nccl" else t
 
 
+chain_collectives = 0  # collectives made over a split chains axis
+
+
+def _collective():
+    """Count one collective over the chains axis and time it as the span
+    ``collective`` (its enqueue and, where it has one, its blocking
+    read)."""
+    global chain_collectives
+    chain_collectives += 1
+    return trace.span("collective")
+
+
 def gather_rows(x, mesh: Optional[DeviceMesh], dim: int = 0):
     """All-gather ``x`` along ``dim`` over the chains axis in rank
     order, so that every rank gets the whole batch's tensor (``x``
     itself without a chain split)."""
     if chain_ranks(mesh) == 1:
         return x
-    group = mesh.get_group(_CHAINS)
-    src = _staged(x.contiguous(), group)
-    parts = [torch.empty_like(src) for _ in range(mesh.size(_CHAINS))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
+    with _collective():
+        group = mesh.get_group(_CHAINS)
+        src = _staged(x.contiguous(), group)
+        parts = [torch.empty_like(src) for _ in range(mesh.size(_CHAINS))]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
 
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
@@ -301,14 +317,19 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 def reduce_int(x, mesh: Optional[DeviceMesh], op: str = "sum") -> int:
     """All-reduce a 0-dim integer tensor (or int) over the chains axis
     with ``op`` (``"sum"``, ``"max"`` or ``"min"``) and return the host
-    int; without a chain split, ``int(x)``."""
+    int; without a chain split, ``int(x)``.  Under NCCL the count goes
+    to the card (a count made there stays there), the all-reduce is
+    queued behind the work that makes it, and the host reads the result
+    once; under gloo it goes through the host."""
     if chain_ranks(mesh) == 1:
         return int(x)
-    group = mesh.get_group(_CHAINS)
-    t = _on_backend(torch.as_tensor(x).to(torch.int64).reshape(1).cpu(),
-                    group)
-    dist.all_reduce(t, op=_OPS[op], group=group)
-    return int(t)
+    with _collective():
+        group = mesh.get_group(_CHAINS)
+        dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        t = torch.as_tensor(x).to(device=dev, dtype=torch.int64,
+                                  copy=True).reshape(1)
+        dist.all_reduce(t, op=_OPS[op], group=group)
+        return int(t)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,14 @@ its ``call`` span as an ancestor.  The fused engine's host loop
 - ``unpack``: the graphs freed, the state unpacked and its gradient
   count read back.
 
+With the chains split over ranks, each collective over the chains axis
+(``parallel.mesh.reduce_int`` and ``gather_rows``) opens one more:
+
+- ``collective``: its enqueue and, for the stop test's all-reduce, its
+  blocking read; inside ``readback`` (the stop test) or ``consensus``
+  (the pooled warmup's all-gather).  ``parallel.mesh.chain_collectives``
+  counts them, beside ``sampler.megakernel.stop_readbacks``.
+
 Spans are recorded while ``torch.profiler`` runs (the flag
 ``torch.autograd.profiler._is_profiler_enabled``), or after
 ``enable(True)``; ``enable(False)`` keeps them off whatever the
